@@ -15,8 +15,10 @@ import torch
 
 from . import ref
 from .conv2d import conv2d_cuda
+from .flash_attention import flash_attention_cuda
 from .lrn import lrn_cuda
 from .matmul import matmul_cuda
+from .paged_attention import paged_attention_cuda
 from .pooling import pool_cuda
 
 
@@ -60,6 +62,32 @@ def lrn(x: torch.Tensor, *, local_size: int = 5, alpha: float = 1e-4,
         return ref.lrn_ref(x, local_size=local_size, alpha=alpha, beta=beta,
                            k=k)
     return lrn_cuda(x, local_size=local_size, alpha=alpha, beta=beta, k=k)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q (B, HQ, S, D); k/v (B, HK, T, D); query ends aligned with key
+    ends.  Any S and T: the kernel masks ragged tiles, so nothing is padded
+    and no call is routed to the plain version."""
+    if _on_cpu(q):
+        return ref.attention_ref(q, k, v, causal=causal, window=window)
+    return flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal=causal, window=window)
+
+
+def paged_attention(q: torch.Tensor, k_arena: torch.Tensor,
+                    v_arena: torch.Tensor, block_tables: torch.Tensor,
+                    pos: torch.Tensor, *,
+                    max_seq: Optional[int] = None) -> torch.Tensor:
+    """Decode attention of q (B, HQ, 1, D) over block arenas
+    (TB, HK, BS, D) read through (B, NB) block tables, positions <= pos."""
+    if _on_cpu(q):
+        return ref.paged_attention_ref(q, k_arena, v_arena, block_tables,
+                                       pos, max_seq=max_seq)
+    return paged_attention_cuda(q.contiguous(), k_arena, v_arena,
+                                block_tables.to(torch.int32).contiguous(),
+                                pos.to(torch.int32).contiguous())
 
 
 # FC layer matching the paper's Eq. 1 (vector-matrix + f)

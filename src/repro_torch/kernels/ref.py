@@ -90,3 +90,69 @@ def lrn_ref(x: torch.Tensor, *, local_size: int = 5, alpha: float = 1e-4,
         acc = acc + padded[..., i:i + c]
     denom = torch.pow(k + (alpha / local_size) * acc, beta)
     return (x.float() / denom).to(x.dtype)
+
+
+def paged_gather(arena: torch.Tensor, block_tables: torch.Tensor,
+                 max_seq: int) -> torch.Tensor:
+    """The dense per-slot KV rows a block table describes.
+
+    arena: (total_blocks(+1), HK, BS, D) physical KV pages; block_tables:
+    (B, NB) int32, block ``j`` of a slot holding tokens ``[j*BS, (j+1)*BS)``.
+    Returns (B, HK, max_seq, D), trimmed to ``max_seq`` (NB*BS may overhang).
+    The paged-attention kernel reads pages through the table instead of
+    materializing these rows.
+    """
+    b, nb = block_tables.shape
+    hk, bs, d = arena.shape[1:]
+    rows = arena[block_tables.long()]                # (B, NB, HK, BS, D)
+    rows = rows.permute(0, 2, 1, 3, 4).reshape(b, hk, nb * bs, d)
+    return rows[:, :, :max_seq]
+
+
+def paged_attention_ref(q: torch.Tensor, k_arena: torch.Tensor,
+                        v_arena: torch.Tensor, block_tables: torch.Tensor,
+                        pos: torch.Tensor, *,
+                        max_seq: Optional[int] = None) -> torch.Tensor:
+    """Paged decode attention, plain: gather through the table, then the
+    dense decode attention of ``models.attention``.
+
+    q: (B, HQ, 1, D); arenas: (total_blocks(+1), HK, BS, D); block_tables:
+    (B, NB) int32; pos: (B,) absolute position of each slot's current token
+    (positions <= pos are attended).
+    """
+    from ..models.attention import decode_attention
+
+    if max_seq is None:
+        max_seq = block_tables.shape[1] * k_arena.shape[2]
+    k = paged_gather(k_arena, block_tables, max_seq)
+    v = paged_gather(v_arena, block_tables, max_seq)
+    return decode_attention(q, k, v, pos=pos, window=None)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """Plain multi-head attention in fp32.  q: (B, HQ, S, D); k/v:
+    (B, HK, T, D); GQA by repeating KV heads.  Query ends are aligned with
+    key ends (query i sits at position i + T - S).  ``window``: each query
+    attends to the last ``window`` keys, itself included.  A query with no
+    key left to attend gets zeros.
+    """
+    b, hq, s, d = q.shape
+    hk, t = k.shape[1], k.shape[2]
+    if hk != hq:
+        k = k.repeat_interleave(hq // hk, dim=1)
+        v = v.repeat_interleave(hq // hk, dim=1)
+    logits = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * (
+        1.0 / (d ** 0.5))
+    qpos = torch.arange(s, device=q.device)[:, None] + (t - s)
+    kpos = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1).nan_to_num(0.0)
+    out = torch.einsum("bhst,bhtd->bhsd", probs, v.float())
+    return out.to(q.dtype)

@@ -1,26 +1,40 @@
 """Carry weights across from numpy arrays (e.g. the JAX package's parameters,
 ``np.asarray`` on each leaf) into the port.
 
-The two packages share one parameter layout by design — filters
-(OC, IC, KH, KW), FC weights (n_in, k_o), FC6's rows in NHWC flatten order —
-so conversion is a copy; every shape is still checked against the network's
-layer specs.
+For a CNN (a ``NetworkSpec``) the two packages share one parameter layout by
+design — filters (OC, IC, KH, KW), FC weights (n_in, k_o), FC6's rows in NHWC
+flatten order — so conversion is a copy; every shape is still checked against
+the network's layer specs.
+
+For a transformer (a ``ModelConfig``) the JAX package stacks its layers for
+``lax.scan``: ``decoder.blocks`` holds one tree per position of the layer
+pattern with a leading super-block axis, and ``decoder.rem`` the remainder
+layers.  Conversion unstacks them into the port's one-dict-per-layer list
+and checks every shape against ``transformer.param_shapes``.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Sequence
+from typing import Any, Dict, List, Mapping, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..core.engines import check_layer_params
 from ..core.layer_model import NetworkSpec
+from .transformer import ModelConfig, map_params, param_shapes
 
 
-def params_from_numpy(net: NetworkSpec,
-                      arrays: Sequence[Mapping[str, np.ndarray]], *,
-                      device="cuda") -> List[Dict[str, torch.Tensor]]:
-    """One dict of float32 tensors on ``device`` per layer of ``net``."""
+def params_from_numpy(net: Union[NetworkSpec, ModelConfig], arrays, *,
+                      device="cuda"):
+    """One dict of float32 tensors on ``device`` per layer of a CNN, or the
+    parameter tree of a transformer (in its ``param_dtype``)."""
+    if isinstance(net, ModelConfig):
+        return _lm_params(net, arrays, device)
+    return _cnn_params(net, arrays, device)
+
+
+def _cnn_params(net: NetworkSpec, arrays: Sequence[Mapping[str, np.ndarray]],
+                device) -> List[Dict[str, torch.Tensor]]:
     if len(arrays) != len(net):
         raise ValueError(f"{len(arrays)} parameter dicts for the "
                          f"{len(net)} layers of {net.name}")
@@ -31,3 +45,53 @@ def params_from_numpy(net: NetworkSpec,
         check_layer_params(spec, tensors)
         out.append(tensors)
     return out
+
+
+def _lm_params(cfg: ModelConfig, tree: Mapping[str, Any],
+               device) -> Dict[str, Any]:
+    unit = cfg.block_pattern
+    blocks, rem = tree["decoder"]["blocks"], tree["decoder"]["rem"]
+    n_super = cfg.n_layers // len(unit)
+    layers = []
+    for i in range(cfg.n_layers):
+        s, j = divmod(i, len(unit))
+        if s < n_super:
+            layers.append(map_params(lambda _, a, s=s: a[s],
+                                     _plain(blocks[j])))
+        else:
+            layers.append(_plain(rem[i - n_super * len(unit)]))
+    flat = {k: _plain(v) for k, v in tree.items() if k != "decoder"}
+    flat["layers"] = layers
+    shapes = param_shapes(cfg)
+    _check_tree(flat, shapes, "params")
+
+    def tensor(_, a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(
+            device=device, dtype=cfg.param_dtype)
+
+    return map_params(tensor, flat)
+
+
+def _plain(tree):
+    """A JAX-side subtree with its mappings as dicts (leaves untouched)."""
+    if isinstance(tree, Mapping):
+        return {k: _plain(v) for k, v in tree.items()}
+    return tree
+
+
+def _check_tree(tree, shapes, path: str) -> None:
+    if isinstance(shapes, dict):
+        if not isinstance(tree, Mapping) or set(tree) != set(shapes):
+            got = sorted(tree) if isinstance(tree, Mapping) else type(tree)
+            raise ValueError(f"{path}: keys {got}, expected {sorted(shapes)}")
+        for k in shapes:
+            _check_tree(tree[k], shapes[k], f"{path}.{k}")
+    elif isinstance(shapes, list):
+        if len(tree) != len(shapes):
+            raise ValueError(f"{path}: {len(tree)} layers, expected "
+                             f"{len(shapes)}")
+        for i, (t, s) in enumerate(zip(tree, shapes)):
+            _check_tree(t, s, f"{path}[{i}]")
+    elif tuple(np.shape(tree)) != tuple(shapes):
+        raise ValueError(f"{path}: shape {tuple(np.shape(tree))}, expected "
+                         f"{tuple(shapes)}")

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.kernels import _build, conv2d, lrn, matmul, pooling
+from repro_torch.kernels import (_build, conv2d, flash_attention, lrn, matmul,
+                                 paged_attention, pooling)
 from repro_torch.models.alexnet import AlexNet
 
 REPO = Path(__file__).resolve().parent.parent
@@ -42,7 +43,10 @@ def test_no_jax_or_reference_imports():
 def test_every_module_imports_with_jax_and_repro_blocked():
     modules = [m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, prefix="repro_torch.")]
-    assert "repro_torch.models.alexnet" in modules
+    for name in ("models.alexnet", "models.transformer", "models.attention",
+                 "configs.qwen2_1_5b", "serving.engine_loop",
+                 "serving.driver", "serving.kv_pool", "obs.trace"):
+        assert f"repro_torch.{name}" in modules
     code = ("import importlib, sys\n"
             "for banned in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[banned] = None\n"
@@ -69,6 +73,8 @@ def test_alexnet_defaults_to_the_card(monkeypatch):
     (conv2d, "conv2d_cuda", "repro_conv2d"),
     (pooling, "pool_cuda", "repro_pool"),
     (lrn, "lrn_cuda", "repro_lrn"),
+    (paged_attention, "paged_attention_cuda", "repro_paged_attention"),
+    (flash_attention, "flash_attention_cuda", "repro_flash_attention"),
 ])
 def test_every_kernel_wrapper_has_a_source_and_a_counter(module, wrapper,
                                                          entry):

@@ -1,5 +1,7 @@
 """The port's kernels module on the CPU against the JAX package's oracles.
 
+``torch.set_num_threads(2)``: the suite runs in parallel workers.
+
 On a CPU tensor every wrapper in ``repro_torch.kernels.ops`` runs the plain
 PyTorch version in ``repro_torch.kernels.ref``; both are held here against
 ``repro.kernels.ref`` on the same numpy-seeded inputs, at the shapes and
@@ -17,9 +19,13 @@ from repro_torch.core import engines
 from repro_torch.core.layer_model import FCSpec
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.conv2d import conv2d_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.lrn import lrn_cuda
 from repro_torch.kernels.matmul import matmul_cuda
+from repro_torch.kernels.paged_attention import paged_attention_cuda
 from repro_torch.kernels.pooling import pool_cuda
+
+torch.set_num_threads(2)
 
 _TOL = {"float32": 2e-4, "bfloat16": 5e-2}
 
@@ -135,8 +141,109 @@ def test_lrn_default_k_is_two(rng):
     assert not torch.allclose(ref.lrn_ref(x, k=1.0), want)
 
 
+# ------------------------------------------------------ flash attention
+# the plain versions are held at the tolerance of the inputs' dtype; the
+# JAX package holds its online-softmax kernel at bf16 tolerance, which
+# chip_smoke.py applies to the CUDA kernel on the card
+@pytest.mark.parametrize("via", ["ref", "ops"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hq,hk", [(8, 8), (8, 2), (4, 1)])
+def test_attention_gqa(rng, hq, hk, dtype, via):
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _pair(rng.normal(size=(2, h, 256, 64)), dtype) for h in (hq, hk, hk))
+    fn = ref.attention_ref if via == "ref" else ops.flash_attention
+    got = fn(tq, tk, tv, causal=True)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _assert_close(got, jref.attention_ref(jq, jk, jv, causal=True), dtype)
+
+
+@pytest.mark.parametrize("via", ["ref", "ops"])
+@pytest.mark.parametrize("window", [32, 64, 250])
+def test_attention_windowed(rng, window, via):
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _pair(rng.normal(size=(1, h, 256, 32)), "float32") for h in (4, 2, 2))
+    fn = ref.attention_ref if via == "ref" else ops.flash_attention
+    _assert_close(fn(tq, tk, tv, causal=True, window=window),
+                  jref.attention_ref(jq, jk, jv, causal=True, window=window),
+                  "float32")
+
+
+@pytest.mark.parametrize("s,t", [(100, 100), (37, 100), (1, 100)])
+def test_attention_aligns_query_ends(s, t):
+    # unaligned lengths, and fewer queries than keys (decode-style): query i
+    # sits at position i + t - s in both packages
+    rng = np.random.default_rng(1)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _pair(rng.normal(size=(1, 2, n, 32)), "float32") for n in (s, t, t))
+    _assert_close(ops.flash_attention(tq, tk, tv, causal=True),
+                  jref.attention_ref(jq, jk, jv, causal=True), "float32")
+
+
+def test_attention_fully_masked_rows_are_zero():
+    # more queries than keys: the first s - t queries sit before every key
+    q, k, v = (torch.ones(1, 2, n, 32) for n in (8, 3, 3))
+    out = ref.attention_ref(q, k, v, causal=True)
+    assert torch.equal(out[:, :, :5], torch.zeros(1, 2, 5, 32))
+    assert torch.isfinite(out).all()
+
+
+# ------------------------------------------------------ paged attention
+def _paged_case(rng, *, b, hq, hk, d, bs, nb, dtype):
+    """tests/test_kernels.py's decode case: an arena of shuffled physical
+    pages + a trash page, and per-slot positions anywhere in the table."""
+    tb = b * nb + 1
+    q = rng.normal(size=(b, hq, 1, d))
+    ka = rng.normal(size=(tb, hk, bs, d))
+    va = rng.normal(size=(tb, hk, bs, d))
+    ids = rng.permutation(np.arange(tb - 1) + 1)
+    bt = ids[:b * nb].reshape(b, nb).astype(np.int32)
+    pos = rng.integers(0, nb * bs, size=(b,)).astype(np.int32)
+    jt = [_pair(a, dtype) for a in (q, ka, va)]
+    return ([x[0] for x in jt] + [jnp.asarray(bt), jnp.asarray(pos)],
+            [x[1] for x in jt] + [torch.from_numpy(bt),
+                                  torch.from_numpy(pos)])
+
+
+@pytest.mark.parametrize("via", ["ref", "ops"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hq,hk", [(8, 8), (8, 2), (4, 1), (12, 2)])
+def test_paged_attention_gqa(rng, hq, hk, dtype, via):
+    jargs, targs = _paged_case(rng, b=3, hq=hq, hk=hk, d=64, bs=16, nb=4,
+                               dtype=dtype)
+    fn = ref.paged_attention_ref if via == "ref" else ops.paged_attention
+    got = fn(*targs)
+    assert got.dtype == targs[0].dtype and got.shape == targs[0].shape
+    _assert_close(got, jref.paged_attention_ref(*jargs), dtype)
+
+
+@pytest.mark.parametrize("pos_list", [[0], [15], [16], [17], [63]])
+def test_paged_attention_block_boundaries(rng, pos_list):
+    jargs, targs = _paged_case(rng, b=len(pos_list), hq=4, hk=2, d=32, bs=16,
+                               nb=4, dtype="float32")
+    pos = np.asarray(pos_list, np.int32)
+    jargs[-1], targs[-1] = jnp.asarray(pos), torch.from_numpy(pos)
+    _assert_close(ops.paged_attention(*targs),
+                  jref.paged_attention_ref(*jargs), "float32")
+
+
+def test_paged_gather_trims_sequence_overhang(rng):
+    # max_seq not a multiple of block_size: the gathered rows are those of
+    # a dense cache of exactly max_seq, bit for bit
+    jargs, targs = _paged_case(rng, b=2, hq=4, hk=2, d=32, bs=8, nb=3,
+                               dtype="float32")
+    got = ref.paged_gather(targs[1], targs[3], 21)
+    assert got.shape == (2, 2, 21, 32)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jref.paged_gather(jargs[1], jargs[3], 21)))
+    pos = np.array([5, 20], np.int32)
+    jargs[-1], targs[-1] = jnp.asarray(pos), torch.from_numpy(pos)
+    _assert_close(ref.paged_attention_ref(*targs, max_seq=21),
+                  jref.paged_attention_ref(*jargs, max_seq=21), "float32")
+
+
 # ------------------------------------------------- kernel wrappers on CPU
-@pytest.mark.parametrize("name", ["matmul", "conv2d", "pool", "lrn"])
+@pytest.mark.parametrize("name", ["matmul", "conv2d", "pool", "lrn",
+                                  "paged_attention", "flash_attention"])
 def test_cuda_wrappers_refuse_cpu_tensors(name):
     """A kernel wrapper launches or raises; it never computes on the CPU."""
     x4 = torch.zeros(1, 8, 8, 4)
@@ -147,6 +254,13 @@ def test_cuda_wrappers_refuse_cpu_tensors(name):
                                                     torch.zeros(2, 4, 3, 3))),
         "pool": (pool_cuda, lambda: pool_cuda(x4)),
         "lrn": (lrn_cuda, lambda: lrn_cuda(x4)),
+        "paged_attention": (paged_attention_cuda, lambda: paged_attention_cuda(
+            torch.zeros(1, 4, 1, 32), torch.zeros(3, 2, 8, 32),
+            torch.zeros(3, 2, 8, 32), torch.zeros(1, 2, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32))),
+        "flash_attention": (flash_attention_cuda, lambda: flash_attention_cuda(
+            torch.zeros(1, 4, 8, 32), torch.zeros(1, 2, 8, 32),
+            torch.zeros(1, 2, 8, 32))),
     }
     wrapper, call = calls[name]
     before = wrapper.launches
