@@ -11,10 +11,15 @@ Phases, each of which raises (and so exits nonzero) on a failed check:
              nvcc into build/repro_torch_kernels/.
 3. kernels — holds each hand-written kernel against its plain PyTorch
              version on the card, at every AlexNet layer shape at the
-             serving batch and at the edge shapes of tests/test_kernels.py;
-             prints the error, the kernel's median time (CUDA events, warm
-             L2, after warm-up), the plain version's and one PyTorch library
-             call's times, and the least time the card could take (bytes
+             serving batch, at the edge shapes of tests/test_kernels.py and
+             at a matmul ragged in every dimension (3 x 9217 x 130); checks
+             that two matmuls at FC6's shape are bitwise equal (split-K
+             sums in a fixed order); prints the error, the kernel's median
+             time (CUDA events, warm L2, after warm-up), the plain version's
+             and one PyTorch library call's times, the kernel's and the
+             library call's device times (device_ms: the calls queued
+             behind a sleep on the card, so the host's time to issue them
+             is left out), and the least time the card could take (bytes
              over 3.35 TB/s or operations over the dtype's peak, the larger;
              a convolution counts the operations of the cheapest of direct,
              Winograd and FFT, see conv_ops).  At AlexNet's shapes no
@@ -34,9 +39,13 @@ Phases, each of which raises (and so exits nonzero) on a failed check:
              heads, 2 kv heads, head_dim 128): the serve phase's decode
              shape and 8 slots at positions spread over 0..2047 (pages of
              16, a boundary page, an inactive slot), and prefill at batch
-             1-4, 512 and 2048 tokens; times each beside its plain version,
-             a library yardstick (index_select gather + SDPA for paged, SDPA
-             on repeated KV heads for flash) and its bound.
+             1-4, 512 and 2048 tokens, and flash's edge cases: ragged
+             S = T = 300, S = 37 against T = 100 (query ends aligned), a
+             window of 64, head_dim 64, and an fp32 case (the CUDA-core
+             body); times each beside its plain version, a library
+             yardstick (index_select gather + SDPA for paged, SDPA on
+             repeated KV heads for flash, with an explicit mask where its
+             is_causal would align query starts) and its bound.
 6. prefill — forward() of the full-width qwen2-1.5B (28 layers, random
              weights from a seed, bf16 compute) on one 512-token prompt
              with attention_impl "hopper": the flash kernel must launch once
@@ -93,6 +102,7 @@ PREFILL_RTOL, DECODE_RTOL = 0.1, 0.1
 PROMPT, GEN, SLOTS, PAGE = 128, 32, 8, 16            # the serve phase
 CNN_KERNELS = ("matmul", "conv2d", "pool", "lrn")
 PREFILL_TOKENS = 512
+QUEUE_SLEEP_CYCLES = 20_000_000     # ~10 ms at the H100's 1.98 GHz boost
 REPLACES = {
     "matmul": "src/repro/kernels/matmul.py:46",
     "conv2d": "src/repro/kernels/conv2d.py:50",
@@ -115,19 +125,54 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median of per-call CUDA-event times after warm-up (L2 left warm)."""
+def time_ms(torch, fn, reps: int = 10, warmup: int = 2,
+            queued: bool = False) -> float:
+    """Median of per-call CUDA-event times after warm-up (L2 left warm).
+
+    A call whose device work is shorter than the host's time to issue it
+    (the wrapper's checks, allocations, the launch) leaves the card idle
+    between the events, so its time is the host's.  With ``queued`` the
+    calls are issued behind a sleep on the card (QUEUE_SLEEP_CYCLES, ~10 ms)
+    and each interval is the device's time alone."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     marks = [(torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    if queued:
+        torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
     for start, end in marks:
         start.record()
         fn()
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in marks)
+
+
+def kernel_times(torch, fn, reps: int = 10) -> str:
+    """The device time of each kernel ``fn`` launches, in us per launch,
+    with its launches per call, from torch.profiler over ``reps`` calls
+    (kernels alone: no launch gaps, no host)."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    parts = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        name = re.sub(r"\(anonymous namespace\)::|^void |<.*|\(.*", "",
+                      ev.key)[:48]
+        parts.append(f"{name}:{ev.self_device_time_total / ev.count:.2f}us"
+                     f"x{ev.count / reps:g}")
+    return " ".join(parts) or "no device time seen"
 
 
 def bound(flops: float, n_bytes: float, dtype: str):
@@ -247,10 +292,12 @@ def kernel_cases(torch, F, ref, kern, net, rng):
             n_in, k_o = param_shapes(spec)["w"]
             act = "none" if spec.activation == "softmax" else spec.activation
             matmul_case(spec.name, BATCH, n_in, k_o, "float32", True, act)
-    # edge shapes of tests/test_kernels.py
+    # edge shapes of tests/test_kernels.py, and one ragged in every
+    # dimension with a K that no split divides (scalar loader, split-K)
     for dtype in ("float32", "bfloat16"):
         matmul_case("unaligned", 100, 300, 70, dtype, False, bias=False)
         matmul_case("fc6-row", 1, 9216, 4096, dtype, False, bias=False)
+        matmul_case("ragged-3x9217", 3, 9217, 130, dtype, False)
         conv_case("conv1-reduced", 2, 12, 3, 8, 11, 4, 2, dtype, False)
         conv_case("5x5-s2", 2, 24, 3, 16, 5, 2, 2, dtype, False)
         pool_case("max-13", 2, 13, 8, 3, 2, "max", dtype, False)
@@ -269,10 +316,11 @@ def phase_kernels(torch, F, ref, kern, net):
     rng = np.random.default_rng(0)
     per_kernel = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                          "library_ms": 0.0, "bound_ms": 0.0,
+                         "device_ms": 0.0, "library_device_ms": 0.0,
                          "t_ops": 0.0, "t_bytes": 0.0}
                   for name in CNN_KERNELS}
     layer_ms = {}       # AlexNet layer -> (kernel ms, plain ms) at BATCH
-    failed = []
+    failed, profiled = [], []
     for (name, label, dtype, main, flops, n_bytes, fn, plain,
          library) in kernel_cases(torch, F, ref, kern, net, rng):
         got, want = fn(), plain()
@@ -283,29 +331,53 @@ def phase_kernels(torch, F, ref, kern, net):
         ms, plain_ms = time_ms(torch, fn), time_ms(torch, plain)
         # the library yardstick is timed at the main path's shapes only
         lib_ms = time_ms(torch, library) if main else float("nan")
+        dev_ms = time_ms(torch, fn, queued=True)
+        lib_dev_ms = (time_ms(torch, library, queued=True) if main
+                      else float("nan"))
         bound_ms, bound_by = bound(flops, n_bytes, dtype)
         print(f"[kernels] {name:<6} {label:<15} {dtype:<8} "
               f"out={tuple(got.shape)} max_abs_err={err:.3e} "
               f"{'ok' if ok else 'FAIL'} ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})"
+              f" device_ms={dev_ms:.4f} library_device_ms={lib_dev_ms:.4f}"
               f" launches={kern[name].launches}", flush=True)
         if not ok:
             failed.append(f"{name} {label} {dtype}: max_abs_err {err:.3e}")
-        if main and min(ms, plain_ms, lib_ms) < bound_ms:
+        if main and min(ms, plain_ms, lib_ms, dev_ms, lib_dev_ms) < bound_ms:
             failed.append(f"{name} {label}: a time below the bound "
                           f"{bound_ms:.4f} ms ({ms:.4f}, {plain_ms:.4f}, "
-                          f"{lib_ms:.4f}): the bound counts too much work")
+                          f"{lib_ms:.4f}, {dev_ms:.4f}, {lib_dev_ms:.4f}): "
+                          "the bound counts too much work")
         if main:
             layer_ms[label] = (ms, plain_ms)
+            if name == "matmul":
+                profiled.append((label, fn, library))
             agg = per_kernel[name]
             agg["max_abs_err"] = max(agg["max_abs_err"], err)
             agg["ms"] += ms
             agg["plain_ms"] += plain_ms
             agg["library_ms"] += lib_ms
             agg["bound_ms"] += bound_ms
+            agg["device_ms"] += dev_ms
+            agg["library_device_ms"] += lib_dev_ms
             fp = FP32_PEAK if dtype == "float32" else BF16_PEAK
             agg["t_ops"] += flops / fp
             agg["t_bytes"] += n_bytes / HBM_BW
+    # split-K sums its slices in a fixed order: two calls, the same bits
+    x = torch.from_numpy(rng.standard_normal((BATCH, 9216)).astype(
+        np.float32)).cuda()
+    w = torch.from_numpy((rng.standard_normal((9216, 4096)) * 0.015).astype(
+        np.float32)).cuda()
+    same = torch.equal(kern["matmul"](x, w), kern["matmul"](x, w))
+    print(f"[kernels] matmul FC6 shape twice: bitwise_equal={same}",
+          flush=True)
+    if not same:
+        failed.append("matmul FC6: two calls differ")
+    # where the FC layers' device time goes, kernel by kernel
+    for label, fn, library in profiled:
+        print(f"[kernels] profile matmul {label}: kernel "
+              f"{kernel_times(torch, fn)} | library "
+              f"{kernel_times(torch, library)}", flush=True)
     check(not failed, "kernel checks failed: " + "; ".join(failed))
     return per_kernel, layer_ms
 
@@ -432,18 +504,26 @@ def phase_main(torch, kern, net, layer_ms):
     return totals, by_plan
 
 
+def attended_pairs(s, t, window=None) -> int:
+    """(query, key) pairs a causal query set attends, query ends aligned
+    with key ends (query i at position i + t - s), at most `window` keys."""
+    qpos = np.arange(s) + t - s
+    lo = np.zeros(s) if window is None else np.maximum(0, qpos - window + 1)
+    return int(np.maximum(0, np.minimum(t - 1, qpos) - lo + 1).sum())
+
+
 def lm_kernel_cases(torch, F, ref, kern, rng):
-    """(kernel, label, main_path, flops, bytes, kernel_fn, plain_fn,
+    """(kernel, label, dtype, main_path, flops, bytes, kernel_fn, plain_fn,
     library_fn) for the attention kernels at qwen2-1.5B's head shapes in
-    bf16; main_path marks the shapes the prefill and serve phases give
-    them.  Operations and bytes count what these inputs need: the keys each
-    query attends (causal, and for paged only positions <= pos), each input
-    read once and the output written once."""
+    bf16, and flash's edge cases; main_path marks the shapes the prefill
+    and serve phases give them.  Operations and bytes count what these
+    inputs need: the keys each query attends (causal, and for paged only
+    positions <= pos), each input read once and the output written once."""
     hq, hk, d = 12, 2, 128
 
-    def t(*shape):
+    def t(*shape, dtype="bfloat16"):
         return torch.from_numpy(rng.standard_normal(shape).astype(
-            np.float32)).cuda().bfloat16()
+            np.float32)).cuda().to(getattr(torch, dtype))
 
     def nbytes(*ts):
         return sum(x.numel() * x.element_size() for x in ts)
@@ -476,22 +556,41 @@ def lm_kernel_cases(torch, F, ref, kern, rng):
                                                   attn_mask=mask)
 
         cases.append((
-            "paged_attention", label, main, 4 * hq * d * keys, n_bytes,
+            "paged_attention", label, "bfloat16", main, 4 * hq * d * keys,
+            n_bytes,
             lambda: kern["paged_attention"](q, ka, va, bt_d, pos_d),
             lambda: ref.paged_attention_ref(q, ka, va, bt_d, pos_d,
                                             max_seq=max_seq),
             library))
 
-    def flash_case(label, b, s, main):
-        q, k, v = t(b, hq, s, d), t(b, hk, s, d), t(b, hk, s, d)
+    def flash_case(label, b, s, main, tk=None, hd=d, window=None,
+                   dtype="bfloat16"):
+        tk = s if tk is None else tk
+        q = t(b, hq, s, hd, dtype=dtype)
+        k, v = t(b, hk, tk, hd, dtype=dtype), t(b, hk, tk, hd, dtype=dtype)
         kr, vr = (x.repeat_interleave(hq // hk, dim=1) for x in (k, v))
+        if tk == s and window is None:
+            def library():
+                return F.scaled_dot_product_attention(q, kr, vr,
+                                                      is_causal=True)
+        else:           # SDPA's is_causal aligns query starts, not ends
+            qpos = torch.arange(s, device="cuda")[:, None] + tk - s
+            kpos = torch.arange(tk, device="cuda")[None, :]
+            mask = kpos <= qpos
+            if window is not None:
+                mask &= kpos > qpos - window
+
+            def library():
+                return F.scaled_dot_product_attention(q, kr, vr,
+                                                      attn_mask=mask)
         cases.append((
-            "flash_attention", label, main, 4 * b * hq * d * s * (s + 1) // 2,
+            "flash_attention", label, dtype, main,
+            4 * b * hq * hd * attended_pairs(s, tk, window),
             2 * nbytes(q) + nbytes(k, v),
-            lambda: kern["flash_attention"](q, k, v, causal=True),
-            lambda: ref.attention_ref(q, k, v, causal=True),
-            lambda: F.scaled_dot_product_attention(q, kr, vr,
-                                                   is_causal=True)))
+            lambda: kern["flash_attention"](q, k, v, causal=True,
+                                            window=window),
+            lambda: ref.attention_ref(q, k, v, causal=True, window=window),
+            library))
 
     # the serve phase's decode shape: 8 slots over 160 positions, one on a
     # page's last position, one on the next page's first, one inactive
@@ -502,6 +601,12 @@ def lm_kernel_cases(torch, F, ref, kern, rng):
     flash_case("prefill-1x512", 1, PREFILL_TOKENS, True)
     for b, s in ((4, 512), (1, 2048), (4, 2048)):
         flash_case(f"{b}x{s}", b, s, False)
+    # edge cases of the tensor-core body, and the fp32 (CUDA-core) body
+    flash_case("ragged-300", 1, 300, False)
+    flash_case("s37-t100", 1, 37, False, tk=100)
+    flash_case("window64-1x512", 1, 512, False, window=64)
+    flash_case("d64-1x512", 1, 512, False, hd=64)
+    flash_case("fp32-1x100-d64", 1, 100, False, hd=64, dtype="float32")
     return cases
 
 
@@ -509,34 +614,45 @@ def phase_lm_kernels(torch, F, ref, kern):
     """Each attention kernel against its plain version; returns the main
     path's per-call numbers by kernel, max_abs_err over every shape."""
     rng = np.random.default_rng(1)
-    main_case, worst, failed = {}, {}, []
-    for (name, label, main, flops, n_bytes, fn, plain,
+    main_case, worst, failed, profiled = {}, {}, [], []
+    for (name, label, dtype, main, flops, n_bytes, fn, plain,
          library) in lm_kernel_cases(torch, F, ref, kern, rng):
         got, want = fn(), plain()
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         ok = got.shape == want.shape and bool(torch.isfinite(got).all()) \
             and torch.allclose(got.float(), want.float(),
-                               rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+                               rtol=TOL[dtype], atol=TOL[dtype])
         ms, plain_ms, lib_ms = (time_ms(torch, f)
                                 for f in (fn, plain, library))
-        bound_ms, bound_by = bound(flops, n_bytes, "bfloat16")
-        print(f"[lm-kernels] {name:<15} {label:<13} bf16 "
+        dev_ms, lib_dev_ms = (time_ms(torch, f, queued=True)
+                              for f in (fn, library))
+        bound_ms, bound_by = bound(flops, n_bytes, dtype)
+        print(f"[lm-kernels] {name:<15} {label:<14} {dtype:<8} "
               f"out={tuple(got.shape)} max_abs_err={err:.3e} "
               f"{'ok' if ok else 'FAIL'} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})",
+              f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})"
+              f" device_ms={dev_ms:.4f} library_device_ms={lib_dev_ms:.4f}",
               flush=True)
         if not ok:
             failed.append(f"{name} {label}: max_abs_err {err:.3e}")
-        if min(ms, plain_ms, lib_ms) < bound_ms:
+        if min(ms, plain_ms, lib_ms, dev_ms, lib_dev_ms) < bound_ms:
             failed.append(f"{name} {label}: a time below the bound "
                           f"{bound_ms:.4f} ms: the bound counts too much")
         worst[name] = max(worst.get(name, 0.0), err)
+        if name == "flash_attention" and label in ("prefill-1x512", "4x2048"):
+            profiled.append((label, fn, library))
         if main:
             main_case[name] = {"ms": ms, "plain_ms": plain_ms,
                                "library_ms": lib_ms, "bound_ms": bound_ms,
+                               "device_ms": dev_ms,
+                               "library_device_ms": lib_dev_ms,
                                "bound_by": bound_by}
     check(not failed, "attention kernel checks failed: " + "; ".join(failed))
+    for label, fn, library in profiled:
+        print(f"[lm-kernels] profile flash {label}: kernel "
+              f"{kernel_times(torch, fn)} | library "
+              f"{kernel_times(torch, library)}", flush=True)
     for name, case in main_case.items():
         case["max_abs_err"] = worst[name]
     return main_case
@@ -550,7 +666,7 @@ def device_profile(torch, fn, label: str) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     kinds = (("paged_attention", ("paged_attention_kernel",)),
-             ("flash_attention", ("flash_attention_kernel",)),
+             ("flash_attention", ("flash_wgmma_kernel", "flash_ffma_kernel")),
              ("gemm", ("gemm", "Gemm", "xmma", "cutlass", "nvjet", "gemv")))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -802,7 +918,8 @@ def main() -> None:
             row.update(
                 max_abs_err=case["max_abs_err"],
                 **{k: case[k] * QWEN2.n_layers for k in
-                   ("ms", "plain_ms", "bound_ms", "library_ms")},
+                   ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms",
+                    "library_device_ms")},
                 bound_by=case["bound_by"])
         else:
             agg = per_kernel[name]
@@ -813,7 +930,8 @@ def main() -> None:
                 plain_ms=agg["plain_ms"], bound_ms=agg["bound_ms"],
                 bound_by=("operations" if agg["t_ops"] > agg["t_bytes"]
                           else "bytes"),
-                library_ms=agg["library_ms"])
+                library_ms=agg["library_ms"], device_ms=agg["device_ms"],
+                library_device_ms=agg["library_device_ms"])
         rows.append(row)
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": rows}))

@@ -12,6 +12,7 @@ Every C entry point launches on the stream it is given and returns
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -120,8 +121,21 @@ def launch(name: str, argtypes: tuple, *args) -> None:
 
 
 def stream(device: torch.device) -> int:
-    """Handle of PyTorch's current stream on ``device``."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """Handle of PyTorch's current stream on ``device`` (the raw handle, as
+    Triton's launcher reads it: a Stream object costs microseconds)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def device_scope(device: torch.device):
+    """``torch.cuda.device(device)``, or a no-op context when ``device`` is
+    already current (the usual case; entering the former costs a few
+    microseconds per launch)."""
+    if device.index == torch.cuda.current_device():
+        return _SAME_DEVICE
+    return torch.cuda.device(device)
 
 
 def check_cuda(name: str, *tensors: Optional[torch.Tensor]) -> torch.device:

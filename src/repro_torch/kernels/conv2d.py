@@ -49,7 +49,7 @@ def conv2d_cuda(x: torch.Tensor, w: torch.Tensor,
     # the kernel then reads rows of OC contiguously
     w_mat = w.permute(2, 3, 1, 0).contiguous()
     out = torch.empty((n, oh, ow, oc), dtype=x.dtype, device=device)
-    with torch.cuda.device(device):
+    with _build.device_scope(device):
         _build.launch("repro_conv2d", _ARGTYPES, x.data_ptr(),
                       w_mat.data_ptr(),
                       None if bias is None else bias.data_ptr(),

@@ -6,7 +6,8 @@ Wraps ``csrc/flash_attention.cu``, which replaces the JAX package's
 scores never reach device memory; tiles above the causal diagonal or left of
 the window are skipped.  The kernel masks ragged edges itself, so the wrapper
 pads nothing, and aligns query ends with key ends as the plain version
-``ref.attention_ref`` does.
+``ref.attention_ref`` does.  bfloat16 runs a tensor-core body (wgmma, K and
+V streamed by TMA), float32 a CUDA-core body; both are hand-written.
 """
 from __future__ import annotations
 
@@ -45,8 +46,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f", k {tuple(k.shape)}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window}")
+    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("flash_attention: bf16 operands must start on a "
+                         "16-byte boundary (TMA reads them)")
     out = torch.empty_like(q)
-    with torch.cuda.device(device):
+    with _build.device_scope(device):
         _build.launch("repro_flash_attention", _ARGTYPES, q.data_ptr(),
                       k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hk,
                       s, t, d, int(causal), window or 0, d ** -0.5,

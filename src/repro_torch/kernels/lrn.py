@@ -33,7 +33,7 @@ def lrn_cuda(x: torch.Tensor, *, local_size: int = 5, alpha: float = 1e-4,
         raise ValueError(f"lrn: local_size {local_size}")
     c = x.shape[-1]
     out = torch.empty_like(x)
-    with torch.cuda.device(device):
+    with _build.device_scope(device):
         _build.launch("repro_lrn", _ARGTYPES, x.data_ptr(), out.data_ptr(),
                       x.numel() // c, c, local_size, k, alpha / local_size,
                       beta, _build.DTYPES[x.dtype], _build.stream(device))

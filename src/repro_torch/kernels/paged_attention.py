@@ -55,7 +55,7 @@ def paged_attention_cuda(q: torch.Tensor, k_arena: torch.Tensor,
     _check_index("block_tables", block_tables, (b, nb), device)
     _check_index("pos", pos, (b,), device)
     out = torch.empty_like(q)
-    with torch.cuda.device(device):
+    with _build.device_scope(device):
         _build.launch("repro_paged_attention", _ARGTYPES, q.data_ptr(),
                       k_arena.data_ptr(), v_arena.data_ptr(),
                       block_tables.data_ptr(), pos.data_ptr(),

@@ -33,7 +33,7 @@ def pool_cuda(x: torch.Tensor, *, window: int = 3, stride: int = 2,
         raise ValueError(f"pool: empty output for input {tuple(x.shape)}, "
                          f"window {window}")
     out = torch.empty((n, oh, ow, c), dtype=x.dtype, device=device)
-    with torch.cuda.device(device):
+    with _build.device_scope(device):
         _build.launch("repro_pool", _ARGTYPES, x.data_ptr(), out.data_ptr(),
                       n, h, w, c, oh, ow, window, stride,
                       int(pool_type == "max"), _build.DTYPES[x.dtype],
