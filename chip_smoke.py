@@ -21,9 +21,13 @@ Phases, each of which raises (and so exits nonzero) on a failed check:
              behind a sleep on the card, so the host's time to issue them
              is left out), and the least time the card could take (bytes
              over 3.35 TB/s or operations over the dtype's peak, the larger;
-             a convolution counts the operations of the cheapest of direct,
+             fp32 matmul and conv2d at the 3xTF32 rate, see peak; a
+             convolution counts the operations of the cheapest of direct,
              Winograd and FFT, see conv_ops).  At AlexNet's shapes no
-             measured time may be below that bound.
+             measured time may be below that bound.  Prints each kernel's
+             own kernels at Conv1-5 and FC6-8 beside the library call's
+             (torch.profiler), and conv2d's device ms by layer group beside
+             F.conv2d's.
 4. main    — serves 4 batches of 64 images through the full-width AlexNet
              (random weights from a numpy seed, carried in with
              params_from_numpy) under three plans: the default schedule,
@@ -37,11 +41,16 @@ Phases, each of which raises (and so exits nonzero) on a failed check:
 5. lm-kernels — holds the paged- and flash-attention kernels against their
              plain versions in bf16 at qwen2-1.5B's head shapes (12 query
              heads, 2 kv heads, head_dim 128): the serve phase's decode
-             shape and 8 slots at positions spread over 0..2047 (pages of
-             16, a boundary page, an inactive slot), and prefill at batch
-             1-4, 512 and 2048 tokens, and flash's edge cases: ragged
-             S = T = 300, S = 37 against T = 100 (query ends aligned), a
-             window of 64, head_dim 64, and an fp32 case (the CUDA-core
+             shape, 8 slots at positions spread over 0..2047 (pages of 16,
+             a boundary page, an inactive slot) and 8 slots on the paged
+             kernel's split boundaries with one at pos < 0 (written as
+             zeros, as the Pallas kernel writes it, where the plain version
+             averages); checks that the serve shape's slot at position 90
+             gives the same bits alone, in the serve batch and in the
+             8 x 2048 batch; and prefill at batch 1-4, 512 and 2048 tokens,
+             and flash's edge cases: ragged S = T = 300, S = 37 against
+             T = 100 (query ends aligned, and starts aligned: q_offset 0),
+             a window of 64, head_dim 64, and an fp32 case (the CUDA-core
              body); times each beside its plain version, a library
              yardstick (index_select gather + SDPA for paged, SDPA on
              repeated KV heads for flash, with an explicit mask where its
@@ -91,6 +100,11 @@ SRC = ROOT / "src"
 
 BATCH, N_BATCHES = 64, 4
 FP32_PEAK, BF16_PEAK, HBM_BW = 67e12, 989e12, 3.35e12   # H100 SXM datasheet
+# GEMM-shaped fp32 work (matmul, conv2d) keeps fp32 accuracy on the tensor
+# cores in 3xTF32 (three TF32 products at the 495 TFLOP/s dense rate), so
+# the least time the card could take counts the faster of the two routes
+TF32_PEAK = 495e12
+FP32_GEMM_PEAK = max(FP32_PEAK, TF32_PEAK / 3)
 TOL = {"float32": 2e-4, "bfloat16": 5e-2}               # tests/test_kernels.py
 PROB_RTOL, PROB_ATOL = 2e-3, 2e-4               # tests/test_core_cnnlab.py
 LAYER_RTOL, LOGP_ATOL = 3e-5, 2e-4       # ~10x the card's 2.8e-6, 1.5e-5
@@ -101,6 +115,7 @@ LAYER_RTOL, LOGP_ATOL = 3e-5, 2e-4       # ~10x the card's 2.8e-6, 1.5e-5
 PREFILL_RTOL, DECODE_RTOL = 0.1, 0.1
 PROMPT, GEN, SLOTS, PAGE = 128, 32, 8, 16            # the serve phase
 CNN_KERNELS = ("matmul", "conv2d", "pool", "lrn")
+GEMM_KERNELS = ("matmul", "conv2d")
 PREFILL_TOKENS = 512
 QUEUE_SLEEP_CYCLES = 20_000_000     # ~10 ms at the H100's 1.98 GHz boost
 REPLACES = {
@@ -175,8 +190,16 @@ def kernel_times(torch, fn, reps: int = 10) -> str:
     return " ".join(parts) or "no device time seen"
 
 
-def bound(flops: float, n_bytes: float, dtype: str):
-    t_ops = flops / (FP32_PEAK if dtype == "float32" else BF16_PEAK)
+def peak(dtype: str, gemm: bool = False) -> float:
+    """Operations per second of the card for work of this dtype; fp32
+    GEMM-shaped work at its fp32-accurate tensor-core rate."""
+    if dtype != "float32":
+        return BF16_PEAK
+    return FP32_GEMM_PEAK if gemm else FP32_PEAK
+
+
+def bound(flops: float, n_bytes: float, dtype: str, gemm: bool = False):
+    t_ops = flops / peak(dtype, gemm)
     t_bytes = n_bytes / HBM_BW
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
                                        else "bytes")
@@ -320,6 +343,7 @@ def phase_kernels(torch, F, ref, kern, net):
                          "t_ops": 0.0, "t_bytes": 0.0}
                   for name in CNN_KERNELS}
     layer_ms = {}       # AlexNet layer -> (kernel ms, plain ms) at BATCH
+    gemm_dev = {}       # AlexNet GEMM layer -> (device ms, library device ms)
     failed, profiled = [], []
     for (name, label, dtype, main, flops, n_bytes, fn, plain,
          library) in kernel_cases(torch, F, ref, kern, net, rng):
@@ -334,7 +358,8 @@ def phase_kernels(torch, F, ref, kern, net):
         dev_ms = time_ms(torch, fn, queued=True)
         lib_dev_ms = (time_ms(torch, library, queued=True) if main
                       else float("nan"))
-        bound_ms, bound_by = bound(flops, n_bytes, dtype)
+        gemm = name in GEMM_KERNELS
+        bound_ms, bound_by = bound(flops, n_bytes, dtype, gemm)
         print(f"[kernels] {name:<6} {label:<15} {dtype:<8} "
               f"out={tuple(got.shape)} max_abs_err={err:.3e} "
               f"{'ok' if ok else 'FAIL'} ms={ms:.4f} plain_ms={plain_ms:.4f} "
@@ -350,8 +375,9 @@ def phase_kernels(torch, F, ref, kern, net):
                           "the bound counts too much work")
         if main:
             layer_ms[label] = (ms, plain_ms)
-            if name == "matmul":
-                profiled.append((label, fn, library))
+            if name in GEMM_KERNELS:
+                profiled.append((name, label, fn, library))
+                gemm_dev[label] = (dev_ms, lib_dev_ms)
             agg = per_kernel[name]
             agg["max_abs_err"] = max(agg["max_abs_err"], err)
             agg["ms"] += ms
@@ -360,8 +386,7 @@ def phase_kernels(torch, F, ref, kern, net):
             agg["bound_ms"] += bound_ms
             agg["device_ms"] += dev_ms
             agg["library_device_ms"] += lib_dev_ms
-            fp = FP32_PEAK if dtype == "float32" else BF16_PEAK
-            agg["t_ops"] += flops / fp
+            agg["t_ops"] += flops / peak(dtype, gemm)
             agg["t_bytes"] += n_bytes / HBM_BW
     # split-K sums its slices in a fixed order: two calls, the same bits
     x = torch.from_numpy(rng.standard_normal((BATCH, 9216)).astype(
@@ -373,11 +398,19 @@ def phase_kernels(torch, F, ref, kern, net):
           flush=True)
     if not same:
         failed.append("matmul FC6: two calls differ")
-    # where the FC layers' device time goes, kernel by kernel
-    for label, fn, library in profiled:
-        print(f"[kernels] profile matmul {label}: kernel "
+    # where the conv and FC layers' device time goes, kernel by kernel
+    for name, label, fn, library in profiled:
+        print(f"[kernels] profile {name} {label}: kernel "
               f"{kernel_times(torch, fn)} | library "
               f"{kernel_times(torch, library)}", flush=True)
+    # the convolutions' device time by layer group, beside F.conv2d's
+    groups = {"Conv1": ["Conv1"], "Conv2": ["Conv2"],
+              "Conv3-5": ["Conv3", "Conv4", "Conv5"],
+              "Conv1-5": ["Conv1", "Conv2", "Conv3", "Conv4", "Conv5"]}
+    print("[kernels] conv2d device ms (kernel / F.conv2d): " + ", ".join(
+        f"{g}={sum(gemm_dev[n][0] for n in ls):.4f}/"
+        f"{sum(gemm_dev[n][1] for n in ls):.4f}"
+        for g, ls in groups.items()), flush=True)
     check(not failed, "kernel checks failed: " + "; ".join(failed))
     return per_kernel, layer_ms
 
@@ -504,12 +537,24 @@ def phase_main(torch, kern, net, layer_ms):
     return totals, by_plan
 
 
-def attended_pairs(s, t, window=None) -> int:
-    """(query, key) pairs a causal query set attends, query ends aligned
-    with key ends (query i at position i + t - s), at most `window` keys."""
-    qpos = np.arange(s) + t - s
+def attended_pairs(s, t, window=None, q_offset=None) -> int:
+    """(query, key) pairs a causal query set attends, query i at key
+    position i + q_offset (default t - s: query ends aligned with key ends),
+    at most `window` keys."""
+    qpos = np.arange(s) + (t - s if q_offset is None else q_offset)
     lo = np.zeros(s) if window is None else np.maximum(0, qpos - window + 1)
     return int(np.maximum(0, np.minimum(t - 1, qpos) - lo + 1).sum())
+
+
+def paged_tables(rng, pos_list, nb):
+    """Block tables for slots at pos_list: shuffled physical pages of an
+    arena of len(pos_list) * nb pages plus a trash page; the last slot is an
+    inactive one whose every entry is page 0."""
+    b = len(pos_list)
+    ids = rng.permutation(b * nb)
+    bt = ids.reshape(b, nb).astype(np.int32)
+    bt[-1] = 0
+    return bt, np.asarray(pos_list, np.int32)
 
 
 def lm_kernel_cases(torch, F, ref, kern, rng):
@@ -534,13 +579,18 @@ def lm_kernel_cases(torch, F, ref, kern, rng):
         b, nb = len(pos_list), -(-max_seq // PAGE)
         tb = b * nb + 1                                 # + the trash page
         q, ka, va = t(b, hq, 1, d), t(tb, hk, PAGE, d), t(tb, hk, PAGE, d)
-        ids = rng.permutation(tb - 1)
-        bt = ids[:b * nb].reshape(b, nb).astype(np.int32)
-        bt[-1] = 0                      # an inactive slot: every entry page 0
-        pos = np.asarray(pos_list, np.int32)
+        bt, pos = paged_tables(rng, pos_list, nb)
         bt_d, pos_d = torch.from_numpy(bt).cuda(), torch.from_numpy(pos).cuda()
-        keys = int((pos + 1).sum())
-        pages = int((pos // PAGE + 1).sum())
+        live = pos >= 0
+        keys = int((pos + 1)[live].sum())
+        pages = int((pos // PAGE + 1)[live].sum())
+        # a slot with nothing to attend (pos < 0) is written as zeros, as
+        # the Pallas kernel writes it; the plain version averages its rows
+        live_d = torch.from_numpy(live).cuda()[:, None, None, None]
+
+        def plain():
+            return torch.where(live_d, ref.paged_attention_ref(
+                q, ka, va, bt_d, pos_d, max_seq=max_seq), 0).to(q.dtype)
         n_bytes = (nbytes(q) * 2 + 2 * pages * hk * PAGE * d * 2
                    + 4 * (pages + b))
         flat = bt_d.flatten()
@@ -558,23 +608,23 @@ def lm_kernel_cases(torch, F, ref, kern, rng):
         cases.append((
             "paged_attention", label, "bfloat16", main, 4 * hq * d * keys,
             n_bytes,
-            lambda: kern["paged_attention"](q, ka, va, bt_d, pos_d),
-            lambda: ref.paged_attention_ref(q, ka, va, bt_d, pos_d,
-                                            max_seq=max_seq),
+            lambda: kern["paged_attention"](q, ka, va, bt_d, pos_d), plain,
             library))
 
     def flash_case(label, b, s, main, tk=None, hd=d, window=None,
-                   dtype="bfloat16"):
+                   dtype="bfloat16", q_offset=None):
         tk = s if tk is None else tk
         q = t(b, hq, s, hd, dtype=dtype)
         k, v = t(b, hk, tk, hd, dtype=dtype), t(b, hk, tk, hd, dtype=dtype)
         kr, vr = (x.repeat_interleave(hq // hk, dim=1) for x in (k, v))
-        if tk == s and window is None:
+        # SDPA's is_causal places query i at key position i
+        if window is None and (tk == s or q_offset == 0):
             def library():
                 return F.scaled_dot_product_attention(q, kr, vr,
                                                       is_causal=True)
-        else:           # SDPA's is_causal aligns query starts, not ends
-            qpos = torch.arange(s, device="cuda")[:, None] + tk - s
+        else:
+            qpos = torch.arange(s, device="cuda")[:, None] + (
+                tk - s if q_offset is None else q_offset)
             kpos = torch.arange(tk, device="cuda")[None, :]
             mask = kpos <= qpos
             if window is not None:
@@ -585,11 +635,12 @@ def lm_kernel_cases(torch, F, ref, kern, rng):
                                                       attn_mask=mask)
         cases.append((
             "flash_attention", label, dtype, main,
-            4 * b * hq * hd * attended_pairs(s, tk, window),
+            4 * b * hq * hd * attended_pairs(s, tk, window, q_offset),
             2 * nbytes(q) + nbytes(k, v),
             lambda: kern["flash_attention"](q, k, v, causal=True,
-                                            window=window),
-            lambda: ref.attention_ref(q, k, v, causal=True, window=window),
+                                            window=window, q_offset=q_offset),
+            lambda: ref.attention_ref(q, k, v, causal=True, window=window,
+                                      q_offset=q_offset),
             library))
 
     # the serve phase's decode shape: 8 slots over 160 positions, one on a
@@ -598,16 +649,58 @@ def lm_kernel_cases(torch, F, ref, kern, rng):
     paged_case("serve-8x160", [0, 15, 16, 47, 90, 128, 159, 0], serve_seq,
                True)
     paged_case("8x2048", [0, 15, 16, 300, 1023, 1500, 2047, 0], 2048, False)
+    # positions on the kernel's split boundaries (PAGES_PER_SPLIT pages of
+    # PAGE: every 64 positions), and a slot with nothing to attend
+    paged_case("splits-8x320", [63, 64, 65, 127, 128, 255, -1, 0], 320, False)
     flash_case("prefill-1x512", 1, PREFILL_TOKENS, True)
     for b, s in ((4, 512), (1, 2048), (4, 2048)):
         flash_case(f"{b}x{s}", b, s, False)
     # edge cases of the tensor-core body, and the fp32 (CUDA-core) body
     flash_case("ragged-300", 1, 300, False)
     flash_case("s37-t100", 1, 37, False, tk=100)
+    flash_case("s37-t100-q0", 1, 37, False, tk=100, q_offset=0)
     flash_case("window64-1x512", 1, 512, False, window=64)
     flash_case("d64-1x512", 1, 512, False, hd=64)
     flash_case("fp32-1x100-d64", 1, 100, False, hd=64, dtype="float32")
     return cases
+
+
+def paged_invariance(torch, kern, rng) -> None:
+    """The serve shape's slot at position 90, run alone, inside the 8-slot
+    serve batch (10 pages a slot) and inside the 8 x 2048 batch (128 pages
+    a slot): its output rows must be the same bits every time."""
+    hq, hk, d = 12, 2, 128
+    nb_serve, nb_wide = -(-(PROMPT + GEN) // PAGE), 2048 // PAGE
+    serve_pos = [0, 15, 16, 47, 90, 128, 159, 0]
+    wide_pos = [0, 15, 16, 300, 90, 1500, 2047, 0]
+    slot = serve_pos.index(90)
+    tb = len(serve_pos) * nb_wide + 1
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).cuda().to(torch.bfloat16)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
+
+    q, ka, va = t(len(serve_pos), hq, 1, d), t(tb, hk, PAGE, d), \
+        t(tb, hk, PAGE, d)
+    bt, _ = paged_tables(rng, wide_pos, nb_wide)
+    runs = {
+        "alone": kern(q[slot:slot + 1].contiguous(), ka, va,
+                      dev(bt[slot:slot + 1, :nb_serve]), dev([90])),
+        "serve-8x160": kern(q, ka, va, dev(bt[:, :nb_serve]),
+                            dev(serve_pos))[slot:slot + 1],
+        "8x2048": kern(q, ka, va, dev(bt), dev(wide_pos))[slot:slot + 1],
+    }
+    torch.cuda.synchronize()
+    same = {label: torch.equal(out, runs["alone"])
+            for label, out in runs.items()}
+    print(f"[lm-kernels] paged_attention slot at pos 90 alone, in the "
+          f"serve batch and in the 8x2048 batch: bitwise_equal={same}",
+          flush=True)
+    check(all(same.values()), f"paged attention: a slot's output changes "
+          f"with its batch {same}")
 
 
 def phase_lm_kernels(torch, F, ref, kern):
@@ -640,7 +733,7 @@ def phase_lm_kernels(torch, F, ref, kern):
             failed.append(f"{name} {label}: a time below the bound "
                           f"{bound_ms:.4f} ms: the bound counts too much")
         worst[name] = max(worst.get(name, 0.0), err)
-        if name == "flash_attention" and label in ("prefill-1x512", "4x2048"):
+        if label in ("prefill-1x512", "4x2048", "serve-8x160", "8x2048"):
             profiled.append((label, fn, library))
         if main:
             main_case[name] = {"ms": ms, "plain_ms": plain_ms,
@@ -649,8 +742,9 @@ def phase_lm_kernels(torch, F, ref, kern):
                                "library_device_ms": lib_dev_ms,
                                "bound_by": bound_by}
     check(not failed, "attention kernel checks failed: " + "; ".join(failed))
+    paged_invariance(torch, kern["paged_attention"], rng)
     for label, fn, library in profiled:
-        print(f"[lm-kernels] profile flash {label}: kernel "
+        print(f"[lm-kernels] profile {label}: kernel "
               f"{kernel_times(torch, fn)} | library "
               f"{kernel_times(torch, library)}", flush=True)
     for name, case in main_case.items():
@@ -665,7 +759,8 @@ def device_profile(torch, fn, label: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    kinds = (("paged_attention", ("paged_attention_kernel",)),
+    kinds = (("paged_attention", ("paged_attention_split_kernel",
+                                  "paged_attention_combine_kernel")),
              ("flash_attention", ("flash_wgmma_kernel", "flash_ffma_kernel")),
              ("gemm", ("gemm", "Gemm", "xmma", "cutlass", "nvjet", "gemv")))
     torch.cuda.synchronize()

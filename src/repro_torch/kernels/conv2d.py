@@ -1,11 +1,13 @@
-"""Implicit-GEMM convolution kernel for Hopper — the Conv module (paper
-Table III, 'Conv Layer').
+"""Implicit-GEMM convolution kernel for Hopper, 3xTF32 on the tensor
+cores — the Conv module (paper Table III, 'Conv Layer').
 
 Wraps ``csrc/conv2d.cu``, which replaces the JAX package's
 ``conv2d_pallas``: NHWC convolution with stride and zero padding, (OC, IC,
 KH, KW) filters, fused bias and activation.  The kernel gathers patches
 straight from the NHWC input, treating padding taps as zeros, so neither a
-padded input nor an im2col matrix is made.  The plain version is
+padded input nor an im2col matrix is made.  Its pre-pass splits the filters
+into TF32 high and low parts in a workspace this wrapper allocates; the
+products hi*hi + hi*lo + lo*hi keep fp32 accuracy.  The plain version is
 ``ref.conv2d_ref``.
 """
 from __future__ import annotations
@@ -18,7 +20,15 @@ from . import _build
 from .matmul import ACTIVATIONS
 
 SOURCE = "conv2d.cu"
-_ARGTYPES = (_build.PTR,) * 4 + (_build.INT,) * 13 + (_build.PTR,)
+_ARGTYPES = (_build.PTR,) * 5 + (_build.INT,) * 13 + (_build.PTR,)
+
+# the kernel's tile rows and k slice (csrc/conv2d.cu kBM, kBK)
+TILE_M, TILE_K = 64, 32
+
+
+def padded_k(ic: int, kh: int, kw: int) -> int:
+    """K = KH * KW * IC rounded up to TILE_K: the split filters' row."""
+    return -(-kh * kw * ic // TILE_K) * TILE_K
 
 
 def conv2d_cuda(x: torch.Tensor, w: torch.Tensor,
@@ -45,16 +55,19 @@ def conv2d_cuda(x: torch.Tensor, w: torch.Tensor,
     if min(n, ic, oc, oh, ow) <= 0:
         raise ValueError(f"conv2d: empty output for input {tuple(x.shape)}, "
                          f"filters {tuple(w.shape)}, padding {padding}")
-    # tap-major filter matrix (KH, KW, IC, OC), as conv2d_pallas reshapes it:
-    # the kernel then reads rows of OC contiguously
-    w_mat = w.permute(2, 3, 1, 0).contiguous()
+    if -(-n * oh * ow // TILE_M) > 65535:
+        raise ValueError(f"conv2d: {n * oh * ow} output pixels exceed the "
+                         f"grid's {65535 * TILE_M}")
     out = torch.empty((n, oh, ow, oc), dtype=x.dtype, device=device)
+    # the kernel's pre-pass writes the filters here as TF32 (hi, lo) parts,
+    # (OC, Kp) each, tap-major
+    ws = torch.empty((2, oc, padded_k(ic, kh, kw)), dtype=torch.float32,
+                     device=device)
     with _build.device_scope(device):
-        _build.launch("repro_conv2d", _ARGTYPES, x.data_ptr(),
-                      w_mat.data_ptr(),
+        _build.launch("repro_conv2d", _ARGTYPES, x.data_ptr(), w.data_ptr(),
                       None if bias is None else bias.data_ptr(),
-                      out.data_ptr(), n, h, wd, ic, oc, kh, kw, oh, ow,
-                      stride, padding, ACTIVATIONS[activation],
+                      out.data_ptr(), ws.data_ptr(), n, h, wd, ic, oc, kh,
+                      kw, oh, ow, stride, padding, ACTIVATIONS[activation],
                       _build.DTYPES[x.dtype], _build.stream(device))
     conv2d_cuda.launches += 1
     return out

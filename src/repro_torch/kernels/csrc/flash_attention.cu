@@ -7,9 +7,12 @@
 // reading its group's kv head; tiles wholly above the causal diagonal or
 // left of the window are skipped, the diagonal tiles masked elementwise.
 // Unlike the Pallas kernel, which assumes S == T and block-aligned lengths
-// (its wrapper pads), this kernel masks keys t >= T and rows >= S itself and
-// aligns query ends with key ends (query i sits at position i + T - S, as
-// the plain version does); a row with no key to attend is written as zeros.
+// (its wrapper pads), this kernel masks keys t >= T and rows >= S itself.
+// Query i sits at key position i + q_offset, in the masks and in the bounds
+// of the key tiles a query tile visits: q_offset = 0 aligns query starts
+// with key starts, as the Pallas kernel does, and T - S aligns query ends
+// with key ends (the wrapper's default).  A row with no key to attend is
+// written as zeros.
 //
 // What bounds it on the H100: causal prefill does about 2 * S * T * D * HQ
 // operations (half of 4 S T D HQ) and moves 2 * (2 S HQ + 2 T HK) * D bytes
@@ -61,6 +64,7 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 using namespace repro;
@@ -75,8 +79,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ out,
-                  int hq, int hk, int S, int Tk, int causal, int window,
-                  float scale) {
+                  int hq, int hk, int S, int Tk, int q_offset, int causal,
+                  int window, float scale) {
   constexpr int DC = D / 16;             // output columns per thread
   constexpr int LQ = BQ + kPad, LK = BKV + kPad;
   extern __shared__ float smem[];
@@ -89,7 +93,7 @@ flash_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.y, b = bh / hq, h = bh % hq;
   const int kh = h / (hq / hk);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int off = Tk - S;                // query i sits at position i + off
+  const int off = q_offset;             // query i sits at position i + off
   const float* qb = q + ((size_t)bh * S) * D;
   const float* kb = k + ((size_t)(b * hk + kh) * Tk) * D;
   const float* vb = v + ((size_t)(b * hk + kh) * Tk) * D;
@@ -208,8 +212,9 @@ flash_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 cudaError_t run_ffma(const void* q, const void* k, const void* v, void* out,
-                     int b, int hq, int hk, int s, int t, int causal,
-                     int window, float scale, cudaStream_t stream) {
+                     int b, int hq, int hk, int s, int t, int q_offset,
+                     int causal, int window, float scale,
+                     cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)D * (BQ + kPad) + (size_t)D * (BKV + kPad) +
                        (size_t)BKV * (BQ + kPad));
@@ -223,7 +228,7 @@ cudaError_t run_ffma(const void* q, const void* k, const void* v, void* out,
   flash_ffma_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), hq, hk, s, t,
-      causal, window, scale);
+      q_offset, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -246,9 +251,6 @@ struct Tile {
   static constexpr size_t kSmem = 5 * (size_t)kBytes + 9 * 8 + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
                "r"(count)
@@ -290,29 +292,6 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(bar)
       : "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most N of the committed groups are pending
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving reads of accumulators across the waits
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (layout << 62);
 }
 // 2^x in one MUFU op (flushes denormals; the probabilities need none)
 __device__ __forceinline__ float ex2(float x) {
@@ -465,7 +444,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
                    bf16* __restrict__ out, int hq, int hk, int S, int Tk,
-                   int causal, int window, float scale_log2) {
+                   int q_offset, int causal, int window, float scale_log2) {
   using G = Tile<D>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -484,7 +463,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int bh = blockIdx.y, b = bh / hq, h = bh % hq;
   const int kvh = b * hk + h / (hq / hk);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int off = Tk - S;                // query i sits at position i + off
+  const int off = q_offset;             // query i sits at position i + off
   const int last_row = min(q0 + BQ, S) - 1;
   int k_end = Tk, k_begin = 0;
   if (causal) k_end = min(Tk, last_row + off + 1);
@@ -744,8 +723,9 @@ bool encode(CUtensorMap* map, const void* base, int rows, int heads) {
 
 template <int D>
 cudaError_t run_wgmma(const void* q, const void* k, const void* v, void* out,
-                      int b, int hq, int hk, int s, int t, int causal,
-                      int window, float scale, cudaStream_t stream) {
+                      int b, int hq, int hk, int s, int t, int q_offset,
+                      int causal, int window, float scale,
+                      cudaStream_t stream) {
   const uintptr_t any_bits = reinterpret_cast<uintptr_t>(q) |
                              reinterpret_cast<uintptr_t>(k) |
                              reinterpret_cast<uintptr_t>(v);
@@ -761,41 +741,42 @@ cudaError_t run_wgmma(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return err;
   dim3 grid((s + BQ - 1) / BQ, b * hq);
   flash_wgmma_kernel<D><<<grid, kWgThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(out), hq, hk, s, t, causal, window,
-      scale * 1.4426950408889634f);
+      tq, tk, tv, static_cast<bf16*>(out), hq, hk, s, t, q_offset, causal,
+      window, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t run(const void* q, const void* k, const void* v, void* out, int b,
-                int hq, int hk, int s, int t, int causal, int window,
-                float scale, int dtype, cudaStream_t stream) {
+                int hq, int hk, int s, int t, int q_offset, int causal,
+                int window, float scale, int dtype, cudaStream_t stream) {
   if (dtype == kBFloat16)
-    return run_wgmma<D>(q, k, v, out, b, hq, hk, s, t, causal, window, scale,
-                        stream);
-  return run_ffma<D>(q, k, v, out, b, hq, hk, s, t, causal, window, scale,
-                     stream);
+    return run_wgmma<D>(q, k, v, out, b, hq, hk, s, t, q_offset, causal,
+                        window, scale, stream);
+  return run_ffma<D>(q, k, v, out, b, hq, hk, s, t, q_offset, causal, window,
+                     scale, stream);
 }
 }  // namespace
 
 // out (B, HQ, S, D) = softmax(q k^T * scale + mask) v for q (B, HQ, S, D),
-// k/v (B, HK, T, D); window <= 0 means no window; D in {32, 64, 128}.
+// k/v (B, HK, T, D), query i at key position i + q_offset; window <= 0
+// means no window; D in {32, 64, 128}.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int b, int hq,
-                                     int hk, int s, int t, int d, int causal,
-                                     int window, float scale, int dtype,
-                                     void* stream) {
+                                     int hk, int s, int t, int d,
+                                     int q_offset, int causal, int window,
+                                     float scale, int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32:
-      return run<32>(q, k, v, out, b, hq, hk, s, t, causal, window, scale,
-                     dtype, st);
+      return run<32>(q, k, v, out, b, hq, hk, s, t, q_offset, causal, window,
+                     scale, dtype, st);
     case 64:
-      return run<64>(q, k, v, out, b, hq, hk, s, t, causal, window, scale,
-                     dtype, st);
+      return run<64>(q, k, v, out, b, hq, hk, s, t, q_offset, causal, window,
+                     scale, dtype, st);
     case 128:
-      return run<128>(q, k, v, out, b, hq, hk, s, t, causal, window, scale,
-                      dtype, st);
+      return run<128>(q, k, v, out, b, hq, hk, s, t, q_offset, causal,
+                      window, scale, dtype, st);
     default:
       return cudaErrorInvalidValue;
   }

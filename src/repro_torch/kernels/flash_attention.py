@@ -5,8 +5,10 @@ Wraps ``csrc/flash_attention.cu``, which replaces the JAX package's
 ``flash_attention_pallas``: an online softmax over key tiles, so the (S, T)
 scores never reach device memory; tiles above the causal diagonal or left of
 the window are skipped.  The kernel masks ragged edges itself, so the wrapper
-pads nothing, and aligns query ends with key ends as the plain version
-``ref.attention_ref`` does.  bfloat16 runs a tensor-core body (wgmma, K and
+pads nothing.  Query i sits at key position i + ``q_offset``: 0 aligns query
+starts with key starts, as the Pallas kernel does; the default T - S aligns
+query ends with key ends, as the plain version ``ref.attention_ref`` does by
+default.  bfloat16 runs a tensor-core body (wgmma, K and
 V streamed by TMA), float32 a CUDA-core body; both are hand-written.
 """
 from __future__ import annotations
@@ -19,16 +21,18 @@ from . import _build
 
 SOURCE = "flash_attention.cu"
 HEAD_DIMS = (32, 64, 128)
-_ARGTYPES = (_build.PTR,) * 4 + (_build.INT,) * 8 + (
+_ARGTYPES = (_build.PTR,) * 4 + (_build.INT,) * 9 + (
     _build.FLOAT, _build.INT, _build.PTR)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
-                         window: Optional[int] = None) -> torch.Tensor:
+                         window: Optional[int] = None,
+                         q_offset: Optional[int] = None) -> torch.Tensor:
     """q (B, HQ, S, D); k/v (B, HK, T, D) with HQ % HK == 0 and D in
     ``HEAD_DIMS``; contiguous CUDA tensors of one dtype (float32 or
-    bfloat16).  Returns (B, HQ, S, D) in q's dtype."""
+    bfloat16).  Query i sits at key position i + q_offset (default T - S).
+    Returns (B, HQ, S, D) in q's dtype."""
     device = _build.check_cuda("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
@@ -53,7 +57,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with _build.device_scope(device):
         _build.launch("repro_flash_attention", _ARGTYPES, q.data_ptr(),
                       k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hk,
-                      s, t, d, int(causal), window or 0, d ** -0.5,
+                      s, t, d, t - s if q_offset is None else q_offset,
+                      int(causal), window or 0, d ** -0.5,
                       _build.DTYPES[q.dtype], _build.stream(device))
     flash_attention_cuda.launches += 1
     return out

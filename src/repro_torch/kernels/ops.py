@@ -65,15 +65,18 @@ def lrn(x: torch.Tensor, *, local_size: int = 5, alpha: float = 1e-4,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """q (B, HQ, S, D); k/v (B, HK, T, D); query ends aligned with key
-    ends.  Any S and T: the kernel masks ragged tiles, so nothing is padded
-    and no call is routed to the plain version."""
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: Optional[int] = None) -> torch.Tensor:
+    """q (B, HQ, S, D); k/v (B, HK, T, D); query i at key position
+    i + q_offset, by default T - S (query ends aligned with key ends).  Any
+    S and T: the kernel masks ragged tiles, so nothing is padded and no call
+    is routed to the plain version."""
     if _on_cpu(q):
-        return ref.attention_ref(q, k, v, causal=causal, window=window)
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
     return flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                v.contiguous(), causal=causal, window=window)
+                                v.contiguous(), causal=causal, window=window,
+                                q_offset=q_offset)
 
 
 def paged_attention(q: torch.Tensor, k_arena: torch.Tensor,

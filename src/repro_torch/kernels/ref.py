@@ -130,13 +130,14 @@ def paged_attention_ref(q: torch.Tensor, k_arena: torch.Tensor,
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True,
-                  window: Optional[int] = None) -> torch.Tensor:
+                  causal: bool = True, window: Optional[int] = None,
+                  q_offset: Optional[int] = None) -> torch.Tensor:
     """Plain multi-head attention in fp32.  q: (B, HQ, S, D); k/v:
-    (B, HK, T, D); GQA by repeating KV heads.  Query ends are aligned with
-    key ends (query i sits at position i + T - S).  ``window``: each query
-    attends to the last ``window`` keys, itself included.  A query with no
-    key left to attend gets zeros.
+    (B, HK, T, D); GQA by repeating KV heads.  Query i sits at key position
+    i + q_offset; the default T - S aligns query ends with key ends, 0
+    aligns their starts.  ``window``: each query attends to the last
+    ``window`` keys, itself included.  A query with no key left to attend
+    gets zeros.
     """
     b, hq, s, d = q.shape
     hk, t = k.shape[1], k.shape[2]
@@ -145,7 +146,8 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         v = v.repeat_interleave(hq // hk, dim=1)
     logits = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * (
         1.0 / (d ** 0.5))
-    qpos = torch.arange(s, device=q.device)[:, None] + (t - s)
+    qpos = torch.arange(s, device=q.device)[:, None] + (
+        t - s if q_offset is None else q_offset)
     kpos = torch.arange(t, device=q.device)[None, :]
     mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
     if causal:

@@ -96,7 +96,10 @@ def chunked_attention(q, k, v, *, causal: bool = True,
 
 def hopper_attention(q, k, v, *, causal: bool = True,
                      window: Optional[int] = None) -> torch.Tensor:
-    return kops.flash_attention(q, k, v, causal=causal, window=window)
+    """Query i at key position i, as ``dot`` and ``chunked`` place it and
+    the JAX package's ``pallas`` impl does."""
+    return kops.flash_attention(q, k, v, causal=causal, window=window,
+                                q_offset=0)
 
 
 def attend(q, k, v, *, impl: str = "dot", causal: bool = True,

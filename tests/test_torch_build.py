@@ -4,8 +4,11 @@
 
 No card or nvcc here, so what can be held without one is held here: every
 wrapper's ctypes argument list against the ``extern "C"`` signature in its
-source (a pointer or a stream passed as a 32-bit int would be cut), and
-``matmul.split_k``, which decides how the FC kernel's grid fills the card.
+source (a pointer or a stream passed as a 32-bit int would be cut);
+``matmul.split_k``, which decides how the FC kernel's grid fills the card;
+the conv2d kernel's shared memory at every AlexNet conv (the port's
+counterpart of tests/test_kernels.py's VMEM budget); and the paged kernel's
+split of each slot's pages over blocks.
 """
 import ctypes
 import math
@@ -105,3 +108,86 @@ def test_split_k_covers_k_once(m, k, n):
     if splits > 1:                         # no slice below the ring's depth
         assert slice_k >= matmul.MIN_SLICE_STEPS * matmul.TILE_K
 
+
+
+# --------------------------------------------------------------- conv2d
+def _cu_constants(source: str) -> dict:
+    text = (_build.CSRC / source).read_text()
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (k\w+) = (\d+);", text)}
+
+
+def test_conv2d_tiles_match_the_kernel():
+    c = _cu_constants("conv2d.cu")
+    assert (c["kBM"], c["kBK"]) == (conv2d.TILE_M, conv2d.TILE_K)
+    # wgmma: 64-row warpgroups, N a multiple of 8 up to 256, and a B tile
+    # row is one 128-byte swizzle span of fp32
+    assert c["kBM"] % 64 == 0 and c["kBK"] == 32
+    assert all(c[n] % 8 == 0 and c[n] <= 256 for n in ("kNarrowN", "kWideN"))
+
+
+SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_RESERVED = 232448, 233472, 1024
+
+
+def _conv2d_smem(tile_n: int) -> int:
+    """Dynamic shared memory of a conv2d block (csrc/conv2d.cu Smem): per
+    stage the B_hi and B_lo tiles and the fp32 A tile (rows padded), then
+    the per-row patch origins and the slack that aligns the tiles."""
+    c = _cu_constants("conv2d.cu")
+    stage = 2 * tile_n * c["kBK"] * 4 + c["kBM"] * (c["kBK"] + c["kAPad"]) * 4
+    return c["kStages"] * stage + c["kBM"] * 16 + 1024
+
+
+def _alexnet_convs():
+    from repro_torch.core.layer_model import alexnet_full_spec
+    for spec in alexnet_full_spec():
+        if spec.kind == "conv":
+            h, _, ic = spec.m_i
+            oc, _, kk, _ = spec.m_k
+            yield spec.name, h, ic, oc, kk, spec.stride, spec.padding
+
+
+@pytest.mark.parametrize("layer", [c[0] for c in _alexnet_convs()])
+def test_conv2d_shared_memory_fits_every_alexnet_conv(layer):
+    _, h, ic, oc, kk, stride, pad = next(
+        c for c in _alexnet_convs() if c[0] == layer)
+    c = _cu_constants("conv2d.cu")
+    for tile_n in (c["kNarrowN"], c["kWideN"]):   # either may be picked
+        smem = _conv2d_smem(tile_n)
+        assert smem <= SMEM_PER_BLOCK, (layer, tile_n, smem)
+        # the blocks the kernel plans per SM fit the SM together
+        assert c["kBlocksPerSM"] * (smem + SMEM_RESERVED) <= SMEM_PER_SM
+    # the split filters' rows cover K in whole k slices
+    k = kk * kk * ic
+    kp = conv2d.padded_k(ic, kk, kk)
+    assert kp % conv2d.TILE_K == 0 and k <= kp < k + conv2d.TILE_K
+    oh = (h + 2 * pad - kk) // stride + 1
+    assert -(-64 * oh * oh // conv2d.TILE_M) <= 65535   # grid.y at batch 64
+
+
+# ------------------------------------------------------ paged attention
+def test_paged_split_matches_the_kernel():
+    c = _cu_constants("paged_attention.cu")
+    assert c["kPagesPerSplit"] == paged_attention.PAGES_PER_SPLIT
+
+
+@pytest.mark.parametrize("bs", [8, 16])
+def test_paged_splits_cover_each_page_up_to_pos_once(bs):
+    # every table width up to 128 pages; positions on both sides of every
+    # page boundary (the pages read change only there), past the table's
+    # end, and below 0
+    for nb in range(1, 129):
+        grid = paged_attention.splits(nb)
+        for pos in sorted({-2, -1} | {j * bs + e for j in range(nb + 2)
+                                      for e in (-1, 0, 1)}):
+            seen = [j for s in range(grid)
+                    for j in paged_attention.split_pages(pos, bs, nb, s)]
+            want = list(range(min(nb, pos // bs + 1))) if pos >= 0 else []
+            assert seen == want, (nb, pos)       # each once, in split order
+            # a split's pages depend on pos and the constant alone: the
+            # same slot in a wider table gets the same splits
+            wider = [list(paged_attention.split_pages(pos, bs, 128, s))
+                     for s in range(grid)]
+            if pos < nb * bs:
+                assert wider == [list(paged_attention.split_pages(
+                    pos, bs, nb, s)) for s in range(grid)]
