@@ -11,8 +11,12 @@ Phases, each of which raises (and so exits nonzero) on a failed check:
              nvcc into build/repro_torch_kernels/.
 3. kernels — holds each hand-written kernel against its plain PyTorch
              version on the card, at every AlexNet layer shape at the
-             serving batch, at the edge shapes of tests/test_kernels.py and
-             at a matmul ragged in every dimension (3 x 9217 x 130); checks
+             serving batch, at the edge shapes of tests/test_kernels.py,
+             at a matmul ragged in every dimension (3 x 9217 x 130), at
+             LRN's even windows (n 4 and 2), a max pool over NaN taps (the
+             NaNs must sit where the plain version's do; the error is taken
+             over the other outputs), and pool and LRN cases whose C is no
+             multiple of 8 or whose pointer is off 16 bytes; checks
              that two matmuls at FC6's shape are bitwise equal (split-K
              sums in a fixed order); prints the error, the kernel's median
              time (CUDA events, warm L2, after warm-up), the plain version's
@@ -24,10 +28,15 @@ Phases, each of which raises (and so exits nonzero) on a failed check:
              fp32 matmul and conv2d at the 3xTF32 rate, see peak; a
              convolution counts the operations of the cheapest of direct,
              Winograd and FFT, see conv_ops).  At AlexNet's shapes no
-             measured time may be below that bound.  Prints each kernel's
-             own kernels at Conv1-5 and FC6-8 beside the library call's
-             (torch.profiler), and conv2d's device ms by layer group beside
-             F.conv2d's.
+             measured time may be below that bound; where bytes bound the
+             work, the times with the L2 flushed before each call
+             (cold_device_ms, plain_cold_ms, library_cold_device_ms; a
+             256 MB write between calls) are held to it as well, since a
+             warm call may read an input that fits the 50 MB L2 from it.
+             Prints each kernel's own kernels at every AlexNet layer
+             beside the library call's (torch.profiler), conv2d's device
+             ms by layer group beside F.conv2d's, and Pool1/2/5's under
+             three tilings of the pool kernel (pool_tilings).
 4. main    — serves 4 batches of 64 images through the full-width AlexNet
              (random weights from a numpy seed, carried in with
              params_from_numpy) under three plans: the default schedule,
@@ -118,6 +127,7 @@ CNN_KERNELS = ("matmul", "conv2d", "pool", "lrn")
 GEMM_KERNELS = ("matmul", "conv2d")
 PREFILL_TOKENS = 512
 QUEUE_SLEEP_CYCLES = 20_000_000     # ~10 ms at the H100's 1.98 GHz boost
+FLUSH_BYTES = 256 << 20             # written between calls to empty the L2
 REPLACES = {
     "matmul": "src/repro/kernels/matmul.py:46",
     "conv2d": "src/repro/kernels/conv2d.py:50",
@@ -157,6 +167,25 @@ def time_ms(torch, fn, reps: int = 10, warmup: int = 2,
     if queued:
         torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
     for start, end in marks:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in marks)
+
+
+def time_cold_ms(torch, fn, flush, reps: int = 10) -> float:
+    """Median per-call CUDA-event time with the L2 flushed before each call:
+    ``flush`` (FLUSH_BYTES, five times the L2) is written between calls, so
+    a call finds its inputs in device memory.  The card is busy with that
+    write while the host issues the call, so each interval is the device's
+    time alone."""
+    fn()
+    torch.cuda.synchronize()
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, end in marks:
+        flush.fill_(1.0)
         start.record()
         fn()
         end.record()
@@ -232,14 +261,17 @@ def conv_ops(n, oh, ow, ic, oc, kh, kw, stride) -> int:
 
 def kernel_cases(torch, F, ref, kern, net, rng):
     """(kernel, label, dtype, main_path, flops, bytes, kernel_fn, plain_fn,
-    library_fn) per checked shape; main_path marks AlexNet's layers at the
-    serving batch."""
+    library_fn, has_nan) per checked shape; main_path marks AlexNet's layers
+    at the serving batch, has_nan the cases whose outputs hold NaN."""
     from repro_torch.core.engines import param_shapes
 
-    def t(shape, dtype="float32", scale=1.0):
-        a = torch.from_numpy(
-            (rng.standard_normal(shape) * scale).astype(np.float32)).cuda()
-        return a.to(getattr(torch, dtype))
+    def t(shape, dtype="float32", scale=1.0, offset=0):
+        """Random values; ``offset`` elements into a larger buffer (a
+        contiguous tensor whose pointer is not 16-byte aligned)."""
+        size = int(np.prod(shape))
+        a = torch.from_numpy((rng.standard_normal(size + offset) * scale)
+                             .astype(np.float32)).cuda()
+        return a.to(getattr(torch, dtype))[offset:].view(shape)
 
     def nbytes(*ts):
         return sum(x.numel() * x.element_size() for x in ts)
@@ -256,7 +288,7 @@ def kernel_cases(torch, F, ref, kern, net, rng):
             lambda: kern["matmul"](x, w, b, activation=act),
             lambda: ref.fc_ref(x, w, b, activation=act),
             (lambda: torch.addmm(b, x, w)) if bias else
-            (lambda: torch.mm(x, w))))
+            (lambda: torch.mm(x, w)), False))
 
     def conv_case(label, n, hw, ic, oc, kk, stride, pad, dtype, main):
         x = t((n, hw, hw, ic), dtype)
@@ -273,10 +305,14 @@ def kernel_cases(torch, F, ref, kern, net, rng):
                                    activation="relu"),
             lambda: ref.conv2d_ref(x, w, b, stride=stride, padding=pad,
                                    activation="relu"),
-            lambda: F.conv2d(x_cl, w_cl, b, stride=stride, padding=pad)))
+            lambda: F.conv2d(x_cl, w_cl, b, stride=stride, padding=pad),
+            False))
 
-    def pool_case(label, n, hw, c, win, stride, pool_type, dtype, main):
-        x = t((n, hw, hw, c), dtype)
+    def pool_case(label, n, hw, c, win, stride, pool_type, dtype, main,
+                  nan=False, offset=0):
+        x = t((n, hw, hw, c), dtype, offset=offset)
+        if nan:      # NaN taps: a window centre, an edge two windows share
+            x[0, 1, 1, 0] = x[0, 2, 0, 1] = x[1, 4, 6, c - 1] = float("nan")
         ohw = (hw - win) // stride + 1
         plain = ref.maxpool_ref if pool_type == "max" else ref.avgpool_ref
         lib = F.max_pool2d if pool_type == "max" else F.avg_pool2d
@@ -286,17 +322,18 @@ def kernel_cases(torch, F, ref, kern, net, rng):
             lambda: kern["pool"](x, window=win, stride=stride,
                                  pool_type=pool_type),
             lambda: plain(x, window=win, stride=stride),
-            lambda: lib(x.permute(0, 3, 1, 2), win, stride)))
+            lambda: lib(x.permute(0, 3, 1, 2), win, stride), nan))
 
-    def lrn_case(label, shape, local, dtype, main):
-        x = t(shape, dtype)
+    def lrn_case(label, shape, local, dtype, main, offset=0):
+        x = t(shape, dtype, offset=offset)
         cases.append((
             "lrn", label, dtype, main, x.numel() * (2 * local + 4),
             2 * nbytes(x),
             lambda: kern["lrn"](x, local_size=local),
             lambda: ref.lrn_ref(x, local_size=local),
             lambda: F.local_response_norm(x.permute(0, 3, 1, 2), local,
-                                          alpha=1e-4, beta=0.75, k=2.0)))
+                                          alpha=1e-4, beta=0.75, k=2.0),
+            False))
 
     for spec in net:               # every AlexNet layer at the serving batch
         if spec.kind == "conv":
@@ -330,7 +367,40 @@ def kernel_cases(torch, F, ref, kern, net, rng):
     pool_case("avg-13", 2, 13, 8, 3, 2, "avg", "float32", False)
     pool_case("avg-9-s3", 2, 9, 3, 3, 3, "avg", "float32", False)
     lrn_case("c16-n3", (2, 7, 7, 16), 3, "float32", False)
+    # the reference's even windows and NaN-propagating max; channel counts
+    # off the 16-byte vector and pointers off 16 bytes (the scalar paths)
+    for dtype in ("float32", "bfloat16"):
+        lrn_case("c12-n4", (2, 7, 7, 12), 4, dtype, False)
+        lrn_case("c6-n2", (2, 7, 7, 6), 2, dtype, False)
+        lrn_case("c96-n5-offset", (2, 7, 7, 96), 5, dtype, False, offset=1)
+        pool_case("max-13-nan", 2, 13, 8, 3, 2, "max", dtype, False, nan=True)
+        pool_case("max-13-c12", 2, 13, 12, 3, 2, "max", dtype, False)
+        pool_case("avg-13-c7", 2, 13, 7, 3, 2, "avg", dtype, False)
+        pool_case("max-27-offset", 2, 27, 16, 3, 2, "max", dtype, False,
+                  offset=1)
+    # the plain LRN kernel's other routes (a window wider than the vector
+    # kernels', more vectors than threads) and an unstaged pool (no tile's
+    # rows fit the staging budget)
+    lrn_case("c16-n11", (2, 7, 7, 16), 11, "float32", False)
+    lrn_case("c1100-n5", (2, 3, 3, 1100), 5, "float32", False)
+    pool_case("avg-7-c4096", 2, 7, 4096, 7, 1, "avg", "float32", False)
     return cases
+
+
+def compare(torch, got, want, tol: float, has_nan: bool):
+    """(max_abs_err, ok) of a kernel's output against its plain version's.
+    With ``has_nan`` the NaNs must sit at the same positions and the error
+    is taken over the others."""
+    if got.shape != want.shape:
+        return float("inf"), False
+    g, w = got.float(), want.float()
+    if not has_nan:
+        return ((g - w).abs().max().item(),
+                torch.allclose(g, w, rtol=tol, atol=tol))
+    keep = ~w.isnan()
+    err = (g[keep] - w[keep]).abs().max().item()
+    return err, (torch.equal(g.isnan(), w.isnan()) and bool(keep.any())
+                 and torch.allclose(g, w, rtol=tol, atol=tol, equal_nan=True))
 
 
 def phase_kernels(torch, F, ref, kern, net):
@@ -340,18 +410,20 @@ def phase_kernels(torch, F, ref, kern, net):
     per_kernel = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                          "library_ms": 0.0, "bound_ms": 0.0,
                          "device_ms": 0.0, "library_device_ms": 0.0,
+                         "cold_device_ms": 0.0,
+                         "library_cold_device_ms": 0.0,
+                         "main_cases": 0, "cold_cases": 0,
                          "t_ops": 0.0, "t_bytes": 0.0}
                   for name in CNN_KERNELS}
     layer_ms = {}       # AlexNet layer -> (kernel ms, plain ms) at BATCH
     gemm_dev = {}       # AlexNet GEMM layer -> (device ms, library device ms)
     failed, profiled = [], []
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
     for (name, label, dtype, main, flops, n_bytes, fn, plain,
-         library) in kernel_cases(torch, F, ref, kern, net, rng):
+         library, has_nan) in kernel_cases(torch, F, ref, kern, net, rng):
         got, want = fn(), plain()
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        ok = got.shape == want.shape and torch.allclose(
-            got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+        err, ok = compare(torch, got, want, TOL[dtype], has_nan)
         ms, plain_ms = time_ms(torch, fn), time_ms(torch, plain)
         # the library yardstick is timed at the main path's shapes only
         lib_ms = time_ms(torch, library) if main else float("nan")
@@ -360,23 +432,38 @@ def phase_kernels(torch, F, ref, kern, net):
                       else float("nan"))
         gemm = name in GEMM_KERNELS
         bound_ms, bound_by = bound(flops, n_bytes, dtype, gemm)
+        # a byte bound counts device-memory bytes: where bytes bound a main
+        # case its times with the L2 flushed before each call are held to
+        # the bound as well (warm, an input that fits the 50 MB L2 may be
+        # read from it)
+        cold = main and bound_by == "bytes"
+        if cold:
+            cold_ms, plain_cold_ms, lib_cold_ms = (
+                time_cold_ms(torch, f, flush) for f in (fn, plain, library))
+        else:
+            cold_ms = plain_cold_ms = lib_cold_ms = float("nan")
         print(f"[kernels] {name:<6} {label:<15} {dtype:<8} "
               f"out={tuple(got.shape)} max_abs_err={err:.3e} "
               f"{'ok' if ok else 'FAIL'} ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})"
               f" device_ms={dev_ms:.4f} library_device_ms={lib_dev_ms:.4f}"
-              f" launches={kern[name].launches}", flush=True)
+              + (f" cold_device_ms={cold_ms:.4f} plain_cold_ms="
+                 f"{plain_cold_ms:.4f} library_cold_device_ms="
+                 f"{lib_cold_ms:.4f}" if cold else "")
+              + f" launches={kern[name].launches}", flush=True)
         if not ok:
             failed.append(f"{name} {label} {dtype}: max_abs_err {err:.3e}")
-        if main and min(ms, plain_ms, lib_ms, dev_ms, lib_dev_ms) < bound_ms:
+        held = (ms, plain_ms, lib_ms, dev_ms, lib_dev_ms) + (
+            (cold_ms, plain_cold_ms, lib_cold_ms) if cold else ())
+        if main and min(held) < bound_ms:
+            times = ", ".join(f"{t:.4f}" for t in held)
             failed.append(f"{name} {label}: a time below the bound "
-                          f"{bound_ms:.4f} ms ({ms:.4f}, {plain_ms:.4f}, "
-                          f"{lib_ms:.4f}, {dev_ms:.4f}, {lib_dev_ms:.4f}): "
-                          "the bound counts too much work")
+                          f"{bound_ms:.4f} ms ({times}): the bound counts "
+                          "too much work")
         if main:
             layer_ms[label] = (ms, plain_ms)
+            profiled.append((name, label, fn, library))
             if name in GEMM_KERNELS:
-                profiled.append((name, label, fn, library))
                 gemm_dev[label] = (dev_ms, lib_dev_ms)
             agg = per_kernel[name]
             agg["max_abs_err"] = max(agg["max_abs_err"], err)
@@ -386,8 +473,14 @@ def phase_kernels(torch, F, ref, kern, net):
             agg["bound_ms"] += bound_ms
             agg["device_ms"] += dev_ms
             agg["library_device_ms"] += lib_dev_ms
+            agg["main_cases"] += 1
+            if cold:
+                agg["cold_cases"] += 1
+                agg["cold_device_ms"] += cold_ms
+                agg["library_cold_device_ms"] += lib_cold_ms
             agg["t_ops"] += flops / peak(dtype, gemm)
             agg["t_bytes"] += n_bytes / HBM_BW
+    del flush
     # split-K sums its slices in a fixed order: two calls, the same bits
     x = torch.from_numpy(rng.standard_normal((BATCH, 9216)).astype(
         np.float32)).cuda()
@@ -398,11 +491,12 @@ def phase_kernels(torch, F, ref, kern, net):
           flush=True)
     if not same:
         failed.append("matmul FC6: two calls differ")
-    # where the conv and FC layers' device time goes, kernel by kernel
+    # where each AlexNet layer's device time goes, kernel by kernel
     for name, label, fn, library in profiled:
         print(f"[kernels] profile {name} {label}: kernel "
               f"{kernel_times(torch, fn)} | library "
               f"{kernel_times(torch, library)}", flush=True)
+    failed += pool_tilings(torch, ref, net)
     # the convolutions' device time by layer group, beside F.conv2d's
     groups = {"Conv1": ["Conv1"], "Conv2": ["Conv2"],
               "Conv3-5": ["Conv3", "Conv4", "Conv5"],
@@ -413,6 +507,53 @@ def phase_kernels(torch, F, ref, kern, net):
         for g, ls in groups.items()), flush=True)
     check(not failed, "kernel checks failed: " + "; ".join(failed))
     return per_kernel, layer_ms
+
+
+def pool_tilings(torch, ref, net) -> list:
+    """Pool1/2/5 (fp32, batch 64, max) on the same kernel under three
+    tilings: the planned one (pooling.plan, eight blocks to an SM), whole
+    input rows (the most output rows whose staged rows leave room for two
+    blocks to an SM) and none (taps read from device memory).  Prints each
+    one's device ms; returns the tilings whose output differs from the
+    plain version's."""
+    from repro_torch.kernels import _build, pooling
+
+    rng = np.random.default_rng(1)
+    stream = _build.stream(torch.device("cuda", torch.cuda.current_device()))
+    ms, failed = {}, []
+    for spec in net:
+        if spec.kind != "pool":
+            continue
+        h, w, c = spec.m_i
+        win, s = spec.window, spec.stride
+        o = (h - win) // s + 1
+        x = torch.from_numpy(rng.standard_normal((BATCH, h, w, c)).astype(
+            np.float32)).cuda()
+        want = ref.maxpool_ref(x, window=win, stride=s)
+        out = torch.empty_like(want)
+        rows = {b: ((b - 1) * s + win) * w * c * 4 for b in range(1, o + 1)}
+        band = max(b for b, size in rows.items()
+                   if size <= 233_472 // 2 - 1024)
+        tilings = {"planned": pooling.plan(w, c, o, o, win, s, 4),
+                   "whole rows": (band, o, rows[band]),
+                   "unstaged": (1, o, 0)}
+        for name, (band, owt, smem) in tilings.items():
+            def call():
+                _build.launch("repro_pool", pooling._ARGTYPES, x.data_ptr(),
+                              out.data_ptr(), BATCH, h, w, c, o, o, win, s,
+                              1, band, owt, smem, 0, stream)
+            call()
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                failed.append(f"pool {spec.name} tiling {name}: output "
+                              "differs from the plain version's")
+            ms.setdefault(name, []).append(
+                (spec.name, band, owt, time_ms(torch, call, queued=True)))
+    print("[kernels] pool tilings, device ms: " + "; ".join(
+        f"{name} {sum(t for *_, t in ts):.4f} (" + ", ".join(
+            f"{layer} {t:.4f} [{b}x{owt}]" for layer, b, owt, t in ts) + ")"
+        for name, ts in ms.items()), flush=True)
+    return failed
 
 
 def numpy_params(net, rng):
@@ -1027,6 +1168,10 @@ def main() -> None:
                           else "bytes"),
                 library_ms=agg["library_ms"], device_ms=agg["device_ms"],
                 library_device_ms=agg["library_device_ms"])
+            if agg["cold_cases"] == agg["main_cases"]:   # all bytes-bound
+                row.update(cold_device_ms=agg["cold_device_ms"],
+                           library_cold_device_ms=agg[
+                               "library_cold_device_ms"])
         rows.append(row)
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": rows}))

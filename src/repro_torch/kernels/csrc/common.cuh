@@ -29,6 +29,35 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
+// VEC elements at p as floats: one 16-byte access (4 fp32 or 8 bf16; p
+// 16-byte aligned) or, for VEC = 1, one element
+template <typename T, int VEC>
+__device__ __forceinline__ void load_vec(const T* p, float (&v)[VEC]) {
+  if constexpr (VEC == 1) {
+    v[0] = to_float(*p);
+  } else {
+    static_assert(VEC * sizeof(T) == 16, "a vector is 16 bytes");
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) v[i] = to_float(e[i]);
+  }
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void store_vec(T* p, const float (&v)[VEC]) {
+  if constexpr (VEC == 1) {
+    *p = from_float<T>(v[0]);
+  } else {
+    static_assert(VEC * sizeof(T) == 16, "a vector is 16 bytes");
+    uint4 raw;
+    T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) e[i] = from_float<T>(v[i]);
+    *reinterpret_cast<uint4*>(p) = raw;
+  }
+}
+
 __device__ __forceinline__ float activate(float v, int act) {
   switch (act) {
     case kRelu: return fmaxf(v, 0.f);

@@ -4,10 +4,10 @@ Wraps ``csrc/lrn.cu``, which replaces the JAX package's ``lrn_pallas``:
 
     y = x / (k + (α/n) · Σ_{window n over channels} x²) ^ β
 
-NHWC, the channel window zero-padded at its edges, computed in fp32.  The
-default k is 2.0, as in the JAX package (PyTorch's own
-``F.local_response_norm`` defaults to 1.0).  The plain version is
-``ref.lrn_ref``.
+NHWC; channel c's window is [c - n//2, c - n//2 + n), for odd and even n,
+zero-padded at the edges; computed in fp32.  The default k is 2.0, as in
+the JAX package (PyTorch's own ``F.local_response_norm`` defaults to 1.0).
+The plain version is ``ref.lrn_ref``.
 """
 from __future__ import annotations
 

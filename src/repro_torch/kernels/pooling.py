@@ -2,10 +2,12 @@
 
 Wraps ``csrc/pooling.cu``, which replaces the JAX package's ``pool_pallas``:
 VALID max or average pooling over window x window taps at a stride, NHWC,
-the average taken in fp32.  The plain versions are ``ref.maxpool_ref`` and
-``ref.avgpool_ref``.
+the average taken in fp32, a NaN tap making its max NaN.  The plain versions
+are ``ref.maxpool_ref`` and ``ref.avgpool_ref``.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -13,7 +15,41 @@ from . import _build
 
 SOURCE = "pooling.cu"
 POOL_TYPES = ("max", "avg")
-_ARGTYPES = (_build.PTR,) * 2 + (_build.INT,) * 10 + (_build.PTR,)
+MAX_BAND = 16               # the most output rows a planned block covers
+THREADS = 256               # threads per block (pooling.cu kThreads)
+# shared memory a block may stage: as many blocks as fill an SM's 2048
+# threads (eight) fit its 228 KB with 1 KB reserved for each
+SMEM_BUDGET = 233_472 // (2048 // THREADS) - 1024
+_ARGTYPES = (_build.PTR,) * 2 + (_build.INT,) * 13 + (_build.PTR,)
+
+
+@functools.lru_cache(maxsize=256)
+def plan(w: int, c: int, oh: int, ow: int, window: int, stride: int,
+         elem_bytes: int) -> tuple[int, int, int]:
+    """(band, owt, smem): each block covers ``band`` output rows and ``owt``
+    output columns of one image and stages the input rows they read,
+    ``smem`` bytes, in shared memory.  Of the tilings that fit SMEM_BUDGET,
+    the one that stages the fewest bytes in all (neighbouring tiles share
+    window - stride rows and columns), then the fewest blocks; if none fits,
+    one output row a block, smem = 0: the kernel reads its taps from device
+    memory."""
+    def smem(band, owt):
+        return (((band - 1) * stride + window) * ((owt - 1) * stride + window)
+                * c * elem_bytes)
+
+    best = None
+    for owt in sorted({-(-ow // k) for k in range(1, ow + 1)}):
+        for band in range(1, min(MAX_BAND, oh) + 1):
+            size = smem(band, owt)
+            if size > SMEM_BUDGET:
+                continue
+            blocks = -(-oh // band) * -(-ow // owt)
+            key = (blocks * size, blocks)
+            if best is None or key < best[0]:
+                best = (key, (band, owt, size))
+    if best is None:                    # one output row per block
+        return 1, ow, 0
+    return best[1]
 
 
 def pool_cuda(x: torch.Tensor, *, window: int = 3, stride: int = 2,
@@ -32,12 +68,13 @@ def pool_cuda(x: torch.Tensor, *, window: int = 3, stride: int = 2,
     if min(n, c, oh, ow) <= 0:
         raise ValueError(f"pool: empty output for input {tuple(x.shape)}, "
                          f"window {window}")
+    band, owt, smem = plan(w, c, oh, ow, window, stride, x.element_size())
     out = torch.empty((n, oh, ow, c), dtype=x.dtype, device=device)
     with _build.device_scope(device):
         _build.launch("repro_pool", _ARGTYPES, x.data_ptr(), out.data_ptr(),
                       n, h, w, c, oh, ow, window, stride,
-                      int(pool_type == "max"), _build.DTYPES[x.dtype],
-                      _build.stream(device))
+                      int(pool_type == "max"), band, owt, smem,
+                      _build.DTYPES[x.dtype], _build.stream(device))
     pool_cuda.launches += 1
     return out
 

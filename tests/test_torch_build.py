@@ -165,6 +165,73 @@ def test_conv2d_shared_memory_fits_every_alexnet_conv(layer):
     assert -(-64 * oh * oh // conv2d.TILE_M) <= 65535   # grid.y at batch 64
 
 
+# --------------------------------------------------------------- pooling
+def test_pool_constants_match_the_kernel():
+    c = _cu_constants("pooling.cu")
+    assert c["kThreads"] == pooling.THREADS
+    assert c["kMaxSmem"] == SMEM_PER_BLOCK
+    # the staging budget leaves room for the eight blocks of THREADS that
+    # fill an SM's 2048 threads
+    assert 2048 // pooling.THREADS == 8
+    assert 8 * (pooling.SMEM_BUDGET + SMEM_RESERVED) <= SMEM_PER_SM
+
+
+def _alexnet_pools():
+    from repro_torch.core.layer_model import alexnet_full_spec
+    for spec in alexnet_full_spec():
+        if spec.kind == "pool":
+            h, _, c = spec.m_i
+            yield spec.name, h, c, spec.window, spec.stride
+
+
+def _staged(o, band, owt, win, stride, c, elem_bytes):
+    """(bytes one block stages, blocks per image) of a tiling."""
+    size = ((band - 1) * stride + win) * ((owt - 1) * stride + win) * c \
+        * elem_bytes
+    return size, -(-o // band) * -(-o // owt)
+
+
+@pytest.mark.parametrize("elem_bytes", [4, 2])
+@pytest.mark.parametrize("layer", [p[0] for p in _alexnet_pools()])
+def test_pool_plan_at_alexnet(layer, elem_bytes):
+    _, h, c, win, stride = next(p for p in _alexnet_pools() if p[0] == layer)
+    o = (h - win) // stride + 1
+    band, owt, smem = pooling.plan(h, c, o, o, win, stride, elem_bytes)
+    size, blocks = _staged(o, band, owt, win, stride, c, elem_bytes)
+    assert smem == size and 0 < smem <= pooling.SMEM_BUDGET
+    # no tiling that fits stages fewer bytes in all
+    least = min(b * s for s, b in (
+        _staged(o, bb, t, win, stride, c, elem_bytes)
+        for bb in range(1, min(pooling.MAX_BAND, o) + 1)
+        for t in range(1, o + 1))
+        if s <= pooling.SMEM_BUDGET)
+    assert blocks * size == least
+    # every thread of a block has an output, and the grid fits
+    assert c * elem_bytes // 16 * owt * band >= pooling.THREADS
+    assert -(-o // band) <= 65535 and -(-o // owt) <= 2 ** 31 - 1
+
+
+@pytest.mark.parametrize("w,c,win,stride,staged", [
+    (224, 512, 3, 2, True),      # wide rows: a tile of a few columns
+    (7, 4096, 7, 1, False),      # not one window fits: taps from memory
+    (9, 3, 3, 3, True),          # small: the whole image in one block
+])
+def test_pool_plan_falls_back_when_rows_do_not_fit(w, c, win, stride,
+                                                   staged):
+    o = (w - win) // stride + 1
+    band, owt, smem = pooling.plan(w, c, o, o, win, stride, 4)
+    assert 1 <= band <= o and 1 <= owt <= o
+    if staged:
+        assert smem == _staged(o, band, owt, win, stride, c, 4)[0]
+        assert 0 < smem <= pooling.SMEM_BUDGET
+        if w * c * 4 * win > pooling.SMEM_BUDGET:
+            assert owt < o
+        else:
+            assert (band, owt) == (o, o)
+    else:
+        assert (band, owt, smem) == (1, o, 0)
+
+
 # ------------------------------------------------------ paged attention
 def test_paged_split_matches_the_kernel():
     c = _cu_constants("paged_attention.cu")

@@ -14,6 +14,14 @@ CPU and held to the oracles before the card runs the kernels themselves.
   splits of ``PAGES_PER_SPLIT``, keeps per split the row max m, the sum l
   and the unnormalized output, and merges the splits in order.
 
+* pooling (``csrc/pooling.cu``) covers per block a band of output rows and
+  a tile of output columns (``pooling.plan``) and reduces each output's
+  window row by row along W, then along H; the max lets a NaN tap win.
+* LRN (``csrc/lrn.cu``) keeps each pixel's squares in a zero-padded row
+  (kOff zeros, C squares, zeros to a multiple of 4), reads per 16-byte
+  vector of channels the aligned span its windows cover, sums each window
+  in order and scales x by 2^(-beta * log2(d)).
+
 The emulations live here, not in the package: the package's CPU route is
 the plain version in ``kernels/ref.py``.
 """
@@ -24,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro.kernels import ref as jref
-from repro_torch.kernels import paged_attention, ref
+from repro_torch.kernels import paged_attention, pooling, ref
 
 torch.set_num_threads(2)
 
@@ -220,3 +228,132 @@ def test_split_walk_gives_a_slot_the_same_bits_in_any_batch():
     alone = _split_walk(args[0][i:i + 1], args[1], args[2], wide,
                         args[4][i:i + 1])
     assert torch.equal(alone[0], batch[i])
+
+
+# ---------------------------------------------------------------- pooling
+def _combine(acc, v, pool_type):
+    if pool_type == "max":                    # NaN wins, as in jax.lax.max
+        return torch.where((v > acc) | torch.isnan(v), v, acc)
+    return acc + v
+
+
+def _pool_blocks(x, window, stride, band, owt, pool_type):
+    """csrc/pooling.cu's walk: per (band of output rows, tile of output
+    columns) of every image, the staged input rows, and per output each
+    window row reduced along W, then the rows along H."""
+    n, h, w, c = x.shape
+    oh, ow = (h - window) // stride + 1, (w - window) // stride + 1
+    init = float("-inf") if pool_type == "max" else 0.0
+    xf, out = x.float(), torch.empty(n, oh, ow, c)
+    for oh0 in range(0, oh, band):
+        nb = min(band, oh - oh0)
+        for ow0 in range(0, ow, owt):
+            nw = min(owt, ow - ow0)
+            rows = (nb - 1) * stride + window
+            cols = (nw - 1) * stride + window
+            tile = xf[:, oh0 * stride:oh0 * stride + rows,
+                      ow0 * stride:ow0 * stride + cols]
+            for j in range(nb):
+                acc = torch.full((n, nw, c), init)
+                for kh in range(window):
+                    part = torch.full((n, nw, c), init)
+                    for kw in range(window):
+                        part = _combine(
+                            part, tile[:, j * stride + kh,
+                                       kw:kw + (nw - 1) * stride + 1:stride],
+                            pool_type)
+                    acc = _combine(acc, part, pool_type)
+                out[:, oh0 + j, ow0:ow0 + nw] = (
+                    acc if pool_type == "max" else acc / window ** 2)
+    return out.to(x.dtype)
+
+
+# (input, window, stride, tiling): "plan" takes pooling.plan's, as the
+# wrapper does (AlexNet's Pool5, and Pool2's rows with fewer channels, at
+# batch 1); the rest force ragged bands and column tiles
+_POOL = {
+    "pool5": ((1, 13, 13, 256), 3, 2, "plan"),
+    "pool2": ((1, 27, 27, 32), 3, 2, "plan"),
+    "band4-owt5": ((2, 27, 27, 8), 3, 2, (4, 5)),
+    "band3-owt1": ((1, 15, 11, 4), 3, 2, (3, 1)),
+    "w2-s2": ((2, 8, 8, 12), 2, 2, (4, 3)),
+    "w3-s3": ((2, 9, 9, 3), 3, 3, (2, 2)),
+    "w3-s1": ((1, 9, 10, 5), 3, 1, (4, 4)),
+}
+
+
+@pytest.mark.parametrize("pool_type", ["max", "avg"])
+@pytest.mark.parametrize("case", sorted(_POOL))
+def test_pool_band_walk_matches_the_plain_version(case, pool_type):
+    shape, window, stride, tiling = _POOL[case]
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal(shape).astype(np.float32)
+    a.reshape(-1)[rng.choice(a.size, 3, replace=False)] = np.nan
+    x = torch.from_numpy(a)
+    n, h, w, c = shape
+    oh, ow = (h - window) // stride + 1, (w - window) // stride + 1
+    if tiling == "plan":
+        band, owt, smem = pooling.plan(w, c, oh, ow, window, stride, 4)
+        assert smem > 0
+    else:
+        band, owt = tiling
+    got = _pool_blocks(x, window, stride, band, owt, pool_type)
+    plain = ref.maxpool_ref if pool_type == "max" else ref.avgpool_ref
+    want = plain(x, window=window, stride=stride)
+    assert torch.isnan(want).any()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    if pool_type == "max":                  # a max is exact in any order
+        assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6,
+                                   equal_nan=True)
+
+
+# ------------------------------------------------------------------- lrn
+def _lrn_rows(x, n, vec, k=2.0, alpha=1e-4, beta=0.75):
+    """csrc/lrn.cu lrn_vec_kernel<T, n> with vectors of ``vec`` channels:
+    Row<n>'s layout, the aligned span per vector, in-order window sums."""
+    c = x.shape[-1]
+    off = (n // 2 + 3) // 4 * 4                         # Row<N>::kOff
+    shift = off - n // 2                                # Row<N>::kShift
+    floats = (off + c + n - 1 - n // 2 + 3) // 4 * 4    # Row<N>::floats
+    span = (shift + vec + n - 1 + 3) // 4 * 4           # kSpan
+    assert off % 4 == 0 and floats % 4 == 0 and span % 4 == 0
+    xf = x.float().reshape(-1, c)
+    pix = xf.shape[0]
+    # rows back to back, + 4 floats of slack after the last; NaN where the
+    # kernel leaves shared memory unwritten, so a read of it would show
+    smem = torch.full((pix * floats + 4,), float("nan"))
+    rows = smem[:pix * floats].view(pix, floats)
+    rows[:, :off] = 0
+    rows[:, off:off + c] = xf * xf
+    rows[:, off + c:] = 0
+    sums = torch.empty_like(xf)
+    for c0 in range(0, c, vec):
+        lo = torch.arange(pix) * floats + c0
+        assert int(lo[-1]) + span <= smem.numel()
+        part = smem[lo[:, None] + torch.arange(span)]
+        for i in range(vec):
+            acc = torch.zeros(pix)
+            for j in range(n):
+                acc = acc + part[:, shift + i + j]
+            sums[:, c0 + i] = acc
+    d = k + (alpha / n) * sums
+    return (xf * torch.exp2(-beta * torch.log2(d))).reshape(x.shape)
+
+
+@pytest.mark.parametrize("c,vec", [(4, 4), (12, 4), (96, 4), (8, 8),
+                                   (96, 8)])
+@pytest.mark.parametrize("n", range(1, 10))
+def test_lrn_rows_match_both_packages(n, c, vec):
+    # every window the vector kernel is built for (1..kMaxN), odd and even,
+    # wider than C (n > 4 at C = 4); large values, so a wrong window shows
+    a = (np.random.default_rng(n).standard_normal((2, 3, 3, c)) * 30
+         ).astype(np.float32)
+    got = _lrn_rows(torch.from_numpy(a), n, vec)
+    assert torch.isfinite(got).all()
+    want_t = ref.lrn_ref(torch.from_numpy(a), local_size=n)
+    want_j = np.asarray(jref.lrn_ref(jnp.asarray(a), local_size=n))
+    np.testing.assert_allclose(got.numpy(), want_t.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), want_j, rtol=1e-5, atol=1e-5)

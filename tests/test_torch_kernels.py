@@ -123,14 +123,68 @@ def test_pool_shapes(rng, hw, c, win, stride, pool_type, via):
     _assert_close(got, jfn(jx, window=win, stride=stride), "float32")
 
 
-# ------------------------------------------------------------------ lrn
+# max pooling propagates NaN, as jax.lax.max does: a window with a NaN tap
+# gives NaN; average pooling does through its sum.  "centre": the smallest
+# case, one window around a NaN; "edge": a NaN in the row two windows share
+_NAN_AT = {"centre": ((3, 3, 1), (1, 1, 0)), "edge": ((5, 5, 2), (2, 0, 1))}
+
+
 @pytest.mark.parametrize("via", ["ref", "ops"])
-@pytest.mark.parametrize("c,local", [(8, 5), (16, 3), (96, 5), (7, 5)])
+@pytest.mark.parametrize("pool_type", ["max", "avg"])
+@pytest.mark.parametrize("where", sorted(_NAN_AT))
+def test_pool_propagates_nan(where, pool_type, via):
+    shape, at = _NAN_AT[where]
+    a = np.zeros((1, *shape), np.float32)
+    a[(0, *at)] = np.nan
+    jx, tx = _pair(a, "float32")
+    if via == "ops":
+        got = ops.pool(tx, window=3, stride=2, pool_type=pool_type)
+    else:
+        fn = ref.maxpool_ref if pool_type == "max" else ref.avgpool_ref
+        got = fn(tx, window=3, stride=2)
+    jfn = jref.maxpool_ref if pool_type == "max" else jref.avgpool_ref
+    want = np.asarray(jfn(jx, window=3, stride=2))
+    assert np.isnan(want).any()
+    np.testing.assert_array_equal(np.isnan(got.numpy()), np.isnan(want))
+    _assert_close(got, want, "float32")
+
+
+# ------------------------------------------------------------------ lrn
+# the window is [c - n//2, c - n//2 + n) for odd and even n, zero-padded:
+# even windows (4, 2), a window of one, and one wider than C (7 > 4)
+@pytest.mark.parametrize("via", ["ref", "ops"])
+@pytest.mark.parametrize("c,local", [(8, 5), (16, 3), (96, 5), (7, 5),
+                                     (12, 4), (6, 2), (5, 1), (4, 7)])
 def test_lrn_shapes(rng, c, local, via):
     jx, tx = _pair(rng.normal(size=(2, 7, 7, c)), "float32")
     fn = ref.lrn_ref if via == "ref" else ops.lrn
     _assert_close(fn(tx, local_size=local),
                   jref.lrn_ref(jx, local_size=local), "float32")
+
+
+@pytest.mark.parametrize("case", ["lrn-n4", "maxpool-nan"])
+def test_smallest_cases_match_the_pallas_kernels(case):
+    # the JAX package's Pallas kernels themselves, in interpret mode, at the
+    # smallest inputs that tell an n + 1 LRN window and a NaN-dropping max
+    # from the reference's
+    from repro.kernels.lrn import lrn_pallas
+    from repro.kernels.pooling import pool_pallas
+
+    if case == "lrn-n4":
+        a = (np.random.default_rng(0).normal(size=(1, 1, 1, 6)) * 30
+             ).astype(np.float32)
+        jx, tx = _pair(a, "float32")
+        want = np.asarray(lrn_pallas(jx, local_size=4, interpret=True))
+        got = ops.lrn(tx, local_size=4)
+    else:
+        a = np.zeros((1, 3, 3, 1), np.float32)
+        a[0, 1, 1, 0] = np.nan
+        jx, tx = _pair(a, "float32")
+        want = np.asarray(pool_pallas(jx, window=3, stride=2,
+                                      pool_type="max", interpret=True))
+        got = ops.pool(tx, window=3, stride=2, pool_type="max")
+    np.testing.assert_array_equal(np.isnan(got.numpy()), np.isnan(want))
+    _assert_close(got, want, "float32")
 
 
 def test_lrn_default_k_is_two(rng):
