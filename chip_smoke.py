@@ -47,6 +47,21 @@ Phases, each of which raises (and so exits nonzero) on a failed check:
              the probabilities agree at the looser tolerance of the JAX
              package's engine-agreement test; and that rows sum to 1.
              Prints images/s.
+4b. measured — the paper's profile-then-offload at batch 64 in fp32:
+             times every AlexNet layer on the torch and hopper engines
+             (repro_torch.profiling, CUDA events around each call, a cache
+             under build/), re-prices the default plan from the cache
+             (compile_plan(price="measured")), which must equal
+             schedule(price="measured") and put each layer on the engine
+             of the smaller median; runs it, checks its launch counts and
+             holds its layers and probabilities to the PyTorch plan's as
+             phase 4 does.  Prints the measured plan's engine per layer,
+             its images/s beside the three plans of phase 4 (in turns,
+             median of three rounds), each engine's analytic and
+             calibrated MAPE, and bench_torch_paper.py's Figs. 7-8 part 2
+             (FC6-8 at 16 rows, cuBLAS against the matmul kernel, which
+             must agree) and Table III rows (every kernel's shared memory
+             per block, each within 232,448 B).
 5. lm-kernels — holds the paged- and flash-attention kernels against their
              plain versions in bf16 at qwen2-1.5B's head shapes (12 query
              heads, 2 kv heads, head_dim 128): the serve phase's decode
@@ -79,8 +94,9 @@ Phases, each of which raises (and so exits nonzero) on a failed check:
              two runs (reported, not gated: the kernel is close to the plain
              version, not bitwise equal).
 
-Every main-path phase (4, 6, 7) sets every kernel's launch count to 0 just
-before it and reads them all just after.  The last line is {"ok": true,
+Every main-path phase (4, 4b, 6, 7) sets every kernel's launch count to 0
+just before it and reads them all just after (4b's count covers its
+profile and its plan's run).  The last line is {"ok": true,
 "device": {...}}; the line before it holds the card's name and power limit,
 and the one before that the per-kernel JSON.  For the AlexNet kernels its
 times are summed over the layers a kernel runs in one forward of the kernel
@@ -124,6 +140,8 @@ LAYER_RTOL, LOGP_ATOL = 3e-5, 2e-4       # ~10x the card's 2.8e-6, 1.5e-5
 PREFILL_RTOL, DECODE_RTOL = 0.1, 0.1
 PROMPT, GEN, SLOTS, PAGE = 128, 32, 8, 16            # the serve phase
 CNN_KERNELS = ("matmul", "conv2d", "pool", "lrn")
+KERNEL_OF = {"conv": "conv2d", "norm": "lrn", "pool": "pool", "fc": "matmul"}
+PROFILE_WARMUP, PROFILE_REPEATS = 3, 15     # the measured phase's profile
 GEMM_KERNELS = ("matmul", "conv2d")
 PREFILL_TOKENS = 512
 QUEUE_SLEEP_CYCLES = 20_000_000     # ~10 ms at the H100's 1.98 GHz boost
@@ -593,8 +611,6 @@ def phase_main(torch, kern, net, layer_ms):
     }
     print("[main] default plan: " + ", ".join(
         f"{a.spec.name}={a.engine}" for a in plans["default"].plan.assignments))
-    kernel_of = {"conv": "conv2d", "norm": "lrn", "pool": "pool",
-                 "fc": "matmul"}
 
     probs, by_plan = {}, {}
     with torch.inference_mode():
@@ -616,7 +632,7 @@ def phase_main(torch, kern, net, layer_ms):
             want = {name: 0 for name in kern}
             for a in model.plan.assignments:
                 if a.engine == "hopper":
-                    want[kernel_of[a.spec.kind]] += N_BATCHES
+                    want[KERNEL_OF[a.spec.kind]] += N_BATCHES
             # where the time goes: the layers' own times from the kernels
             # phase against the measured time of a forward
             per_fwd = dt / N_BATCHES * 1e3
@@ -638,44 +654,172 @@ def phase_main(torch, kern, net, layer_ms):
         acts = {label: model.activations(images[0])
                 for label, model in plans.items()}
 
-    n_cls = net.layers[-1].k_o
-    for label in ("default", "hopper", "torch"):
-        for p in probs[label]:
-            check(p.shape == (BATCH, n_cls) and bool(torch.isfinite(p).all()),
-                  f"plan {label}: output {tuple(p.shape)} not finite "
-                  f"({BATCH}, {n_cls})")
-            check(torch.allclose(p.sum(-1), torch.ones(BATCH, device=p.device),
-                                 rtol=1e-5, atol=0),
-                  f"plan {label}: probability rows do not sum to 1")
     for label in ("default", "hopper"):
-        rel = {}
-        for spec, a, b in zip(list(net)[:-1], acts[label][:-1],
-                              acts["torch"][:-1]):
-            check(a.shape == b.shape, f"plan {label} {spec.name}: shape "
-                  f"{tuple(a.shape)}, expected {tuple(b.shape)}")
-            rel[spec.name] = ((a - b).abs().max() / b.abs().max()).item()
-        # log-probabilities: the logits less their row's logsumexp; the
-        # clamp keeps probabilities that underflow out of the comparison
-        logp_diff = max(
-            (torch.log(a.clamp_min(1e-30)) - torch.log(b.clamp_min(1e-30)))
-            .abs().max().item() for a, b in zip(probs[label], probs["torch"]))
-        prob_diff = max((a - b).abs().max().item()
-                        for a, b in zip(probs[label], probs["torch"]))
-        prob_ok = all(torch.allclose(a, b, rtol=PROB_RTOL, atol=PROB_ATOL)
-                      for a, b in zip(probs[label], probs["torch"]))
-        worst = max(rel, key=rel.get)
-        print(f"[main] plan={label} vs torch: layer_rel_err="
-              + ",".join(f"{n}:{e:.2e}" for n, e in rel.items())
-              + f" max_layer_rel_err={rel[worst]:.3e} ({worst}) "
-              f"max_logp_abs_diff={logp_diff:.3e} "
-              f"max_prob_abs_diff={prob_diff:.3e}", flush=True)
-        check(rel[worst] <= LAYER_RTOL, f"plan {label}: {worst} differs from "
-              f"the torch plan by {rel[worst]:.3e} of its largest magnitude")
-        check(logp_diff <= LOGP_ATOL, f"plan {label}: log-probabilities "
-              f"differ from the torch plan's by {logp_diff:.3e}")
-        check(prob_ok, f"plan {label} disagrees with the torch plan "
-              f"(max abs diff {prob_diff:.3e})")
-    return totals, by_plan
+        gate_plan(torch, net, label, acts[label], probs[label], acts["torch"],
+                  probs["torch"], "main")
+    check_probs(torch, net, "torch", probs["torch"])
+    return totals, by_plan, params, images, plans, acts["torch"], \
+        probs["torch"]
+
+
+def check_probs(torch, net, label, probs) -> None:
+    """Each batch's output: (BATCH, classes), finite, rows summing to 1."""
+    n_cls = net.layers[-1].k_o
+    for p in probs:
+        check(p.shape == (BATCH, n_cls) and bool(torch.isfinite(p).all()),
+              f"plan {label}: output {tuple(p.shape)} not finite "
+              f"({BATCH}, {n_cls})")
+        check(torch.allclose(p.sum(-1), torch.ones(BATCH, device=p.device),
+                             rtol=1e-5, atol=0),
+              f"plan {label}: probability rows do not sum to 1")
+
+
+def gate_plan(torch, net, label, acts, probs, acts_torch, probs_torch,
+              tag: str) -> None:
+    """Hold a plan's outputs to the PyTorch plan's: every layer of the first
+    batch within LAYER_RTOL of the layer's largest magnitude, every batch's
+    log-probabilities within LOGP_ATOL and probabilities at the JAX
+    package's engine-agreement tolerance."""
+    check_probs(torch, net, label, probs)
+    rel = {}
+    for spec, a, b in zip(list(net)[:-1], acts[:-1], acts_torch[:-1]):
+        check(a.shape == b.shape, f"plan {label} {spec.name}: shape "
+              f"{tuple(a.shape)}, expected {tuple(b.shape)}")
+        rel[spec.name] = ((a - b).abs().max() / b.abs().max()).item()
+    # log-probabilities: the logits less their row's logsumexp; the clamp
+    # keeps probabilities that underflow out of the comparison
+    logp_diff = max(
+        (torch.log(a.clamp_min(1e-30)) - torch.log(b.clamp_min(1e-30)))
+        .abs().max().item() for a, b in zip(probs, probs_torch))
+    prob_diff = max((a - b).abs().max().item()
+                    for a, b in zip(probs, probs_torch))
+    prob_ok = all(torch.allclose(a, b, rtol=PROB_RTOL, atol=PROB_ATOL)
+                  for a, b in zip(probs, probs_torch))
+    worst = max(rel, key=rel.get)
+    print(f"[{tag}] plan={label} vs torch: layer_rel_err="
+          + ",".join(f"{n}:{e:.2e}" for n, e in rel.items())
+          + f" max_layer_rel_err={rel[worst]:.3e} ({worst}) "
+          f"max_logp_abs_diff={logp_diff:.3e} "
+          f"max_prob_abs_diff={prob_diff:.3e}", flush=True)
+    check(rel[worst] <= LAYER_RTOL, f"plan {label}: {worst} differs from "
+          f"the torch plan by {rel[worst]:.3e} of its largest magnitude")
+    check(logp_diff <= LOGP_ATOL, f"plan {label}: log-probabilities "
+          f"differ from the torch plan's by {logp_diff:.3e}")
+    check(prob_ok, f"plan {label} disagrees with the torch plan "
+          f"(max abs diff {prob_diff:.3e})")
+
+
+def images_per_s(torch, run, images) -> float:
+    """N_BATCHES batches through ``run``, host clock around a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x in images:
+        run(x)
+    torch.cuda.synchronize()
+    return N_BATCHES * BATCH / (time.perf_counter() - t0)
+
+
+def phase_measured(torch, kern, net, params, images, plans, acts_torch,
+                   probs_torch):
+    """4b. The paper's profile-then-offload at BATCH in fp32: time every
+    AlexNet layer on both engines into a cache under build/, re-price the
+    default plan from it (compile_plan(price="measured")), run that plan
+    and hold it to the PyTorch plan; then its images/s beside the three
+    plans of phase 4, in turns on this host."""
+    from repro_torch.core import engines as eng
+    from repro_torch.core import scheduler
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.profiling import (MeasuredPricer, ProfileCache,
+                                       calibration_report, profile_network)
+
+    engines = eng.DEFAULT_ENGINES
+    cache = ProfileCache(str(ROOT / "build" / "profile_cache_chip_smoke.json"))
+    for fn in kern.values():           # every count to 0 before the path
+        fn.launches = 0
+    t0 = time.perf_counter()
+    measurements = profile_network(net, engines, batch=BATCH,
+                                   warmup=PROFILE_WARMUP,
+                                   repeats=PROFILE_REPEATS, cache=cache)
+    cache.save()
+    check(len(measurements) == len(net) * len(engines),
+          f"profiled {len(measurements)} of {len(net) * len(engines)} pairs")
+    pricer = MeasuredPricer(cache, measure_on_miss=False, autosave=False)
+    plan = scheduler.schedule(net, engines, batch=BATCH, price="measured",
+                              pricer=pricer)
+    with torch.inference_mode():
+        run = compile_plan(plans["default"].plan, price="measured",
+                           pricer=pricer, batch=BATCH)
+        check(run.plan == plan, "compile_plan(price='measured') built "
+              "another plan than schedule(price='measured')")
+        run(images[0], params)          # first-call costs stay out
+        torch.cuda.synchronize()
+        before = {name: fn.launches for name, fn in kern.items()}
+        rate = images_per_s(torch, lambda x: run(x, params), images)
+        totals = {name: fn.launches for name, fn in kern.items()}
+    print(f"[measured] profiled {len(measurements)} (layer, engine) pairs "
+          f"at batch {BATCH} (warmup {PROFILE_WARMUP}, median of "
+          f"{PROFILE_REPEATS}) and ran the plan in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # the scheduler's gate: each layer on the engine of the smaller median
+    medians = {(m.layer, m.engine): m.t_median for m in measurements}
+    for a in plan.assignments:
+        t = {e.name: medians[(a.spec.name, e.name)] for e in engines}
+        fastest = min(t, key=t.get)      # a tie keeps the first, torch
+        print(f"[measured] {a.spec.name}: " + ", ".join(
+            f"{name} {ms * 1e3:.4f} ms" for name, ms in t.items())
+            + f" -> {a.engine}", flush=True)
+        check(a.engine == fastest and a.cost.t_total == t[fastest],
+              f"{a.spec.name} on {a.engine}, but {fastest} measured "
+              f"faster ({t})")
+    delta = {name: totals[name] - before[name] for name in kern}
+    want = {name: 0 for name in kern}
+    for a in plan.assignments:
+        if a.engine == "hopper":
+            want[KERNEL_OF[a.spec.kind]] += N_BATCHES
+    print(f"[measured] plan: " + ", ".join(
+        f"{a.spec.name}={a.engine}" for a in plan.assignments)
+        + f" images/s={rate:.1f} launches={delta} "
+        f"(profile and plan: {totals})", flush=True)
+    check(delta == want, f"measured plan: launches {delta}, expected {want}")
+    check(all(totals[n] for n in CNN_KERNELS),
+          f"a kernel never ran on the measured path: {totals}")
+
+    with torch.inference_mode():
+        acts = run.activations(images[0], params)
+        probs = [run(x, params) for x in images]
+        gate_plan(torch, net, "measured", acts, probs, acts_torch,
+                  probs_torch, "measured")
+        # images/s of the four plans, in turns, median of three rounds
+        runs = {"measured": lambda x: run(x, params),
+                **{label: model for label, model in plans.items()}}
+        rates = {label: [] for label in runs}
+        for r in range(3):
+            order = list(runs)[r:] + list(runs)[:r]
+            for label in order:
+                rates[label].append(images_per_s(torch, runs[label], images))
+    print("[measured] images/s in turns (median of 3): " + ", ".join(
+        f"{label}={statistics.median(v):.1f}" for label, v in rates.items()),
+        flush=True)
+
+    for e in engines:
+        rep = calibration_report(e, list(net), measurements, batch=BATCH)
+        print(f"[measured] calibration {e.name}: MAPE analytic "
+              f"{rep.analytic_mape:.2%} calibrated {rep.calibrated_mape:.2%}"
+              f" ({len(rep.predictions)} layers)", flush=True)
+
+    # the paper's Figs. 7-8 part 2 (cuBLAS against the matmul kernel) and
+    # Table III's shared memory per block of every kernel
+    from benchmarks import bench_torch_paper as paper
+    rows = paper.fig7_fig8_measured_rows() + paper.smem_rows()
+    for bench, name, value, derived, status in rows:
+        print(f"[paper] {bench},{name},{value},{derived!r},{status}",
+              flush=True)
+    check(all(r[4] not in ("MISMATCH", "OVERFLOW") for r in rows),
+          "paper bench rows failed")
+    smem_kernels = {r[1].split("_")[0] for r in rows if r[0] == "table3_smem"}
+    check(smem_kernels == {"conv2d", "pool", "lrn", "matmul", "flash",
+                           "paged"}, f"smem rows for {smem_kernels}")
+    return totals
 
 
 def attended_pairs(s, t, window=None, q_offset=None) -> int:
@@ -798,7 +942,7 @@ def lm_kernel_cases(torch, F, ref, kern, rng):
         flash_case(f"{b}x{s}", b, s, False)
     # edge cases of the tensor-core body, and the fp32 (CUDA-core) body
     flash_case("ragged-300", 1, 300, False)
-    flash_case("s37-t100", 1, 37, False, tk=100)
+    flash_case("s37-t100", 1, 37, False, tk=100, q_offset=100 - 37)
     flash_case("s37-t100-q0", 1, 37, False, tk=100, q_offset=0)
     flash_case("window64-1x512", 1, 512, False, window=64)
     flash_case("d64-1x512", 1, 512, False, hd=64)
@@ -1123,8 +1267,12 @@ def main() -> None:
     net = alexnet_full_spec()
     per_kernel, layer_ms = phase_kernels(torch, F, ref, kern, net)
 
-    # 4. the main path
-    launches, by_plan = phase_main(torch, kern, net, layer_ms)
+    # 4. the main path, then 4b. its measured (profile-then-offload) plan
+    launches, by_plan, cnn_params, images, plans, acts_torch, probs_torch = \
+        phase_main(torch, kern, net, layer_ms)
+    measured_launches = phase_measured(torch, kern, net, cnn_params, images,
+                                       plans, acts_torch, probs_torch)
+    del cnn_params, images, plans, acts_torch, probs_torch
 
     # 5. the attention kernels against their plain versions
     lm = phase_lm_kernels(torch, F, ref, kern)
@@ -1137,8 +1285,8 @@ def main() -> None:
           f"bf16 copy in {time.perf_counter() - t0:.1f} s", flush=True)
     prefill_launches = phase_prefill(torch, kern, QWEN2, params)
     serve_launches, _, _ = phase_serve(torch, kern, QWEN2, params)
-    by_phase = {"alexnet": launches, "prefill": prefill_launches,
-                "serve": serve_launches}
+    by_phase = {"alexnet": launches, "measured": measured_launches,
+                "prefill": prefill_launches, "serve": serve_launches}
     home = {"flash_attention": "prefill", "paged_attention": "serve"}
 
     rows = []

@@ -16,9 +16,11 @@ A plan also carries per-layer *offload overhead* (the paper's PCIe sync,
 Fig. 5 step 4): switching engines between adjacent layers costs the
 activation transfer at link bandwidth.
 
-Pricing: ``price="analytic"`` uses the static device models.  Measured
-(profile-then-offload) pricing arrives with the port of the profiling
-runtime (ROADMAP item 7); until then ``price="measured"`` raises.
+Pricing sources: ``price="analytic"`` (default) uses the static device
+models; ``price="measured"`` is the paper's profile-then-offload runtime
+flow — candidates are priced from the empirical profile cache
+(``repro_torch.profiling``), measuring on miss, and fall back to analytic
+for anything unmeasurable (cost-only paper devices, backward passes).
 """
 from __future__ import annotations
 
@@ -110,18 +112,37 @@ def _candidate_costs(
     dtype_bytes: int,
     n_chips: int,
     direction: str,
+    pricer=None,
 ) -> Dict[str, CostBreakdown]:
     out = {}
     for eng in engines:
         if not eng.supports(spec):
             continue
-        eff = eng.efficiency if eng.device.analytic else 1.0
-        out[eng.name] = layer_cost(
-            spec, eng.device, batch=batch, dtype_bytes=dtype_bytes,
-            n_chips=n_chips, direction=direction, mxu_efficiency=eff)
+        cost = None
+        if pricer is not None:
+            cost = pricer.price(spec, eng, batch=batch,
+                                dtype_bytes=dtype_bytes, n_chips=n_chips,
+                                direction=direction)
+        if cost is None:                 # analytic model (or pricer declined)
+            eff = eng.efficiency if eng.device.analytic else 1.0
+            cost = layer_cost(
+                spec, eng.device, batch=batch, dtype_bytes=dtype_bytes,
+                n_chips=n_chips, direction=direction, mxu_efficiency=eff)
+        out[eng.name] = cost
     if not out:
         raise ValueError(f"no engine supports layer {spec.name} ({spec.kind})")
     return out
+
+
+def _resolve_pricer(price: str, pricer):
+    if price not in ("analytic", "measured"):
+        raise ValueError(f"unknown pricing source: {price!r}")
+    if price == "analytic":
+        return None
+    if pricer is None:
+        from ..profiling.pricer import MeasuredPricer  # avoid import cycle
+        pricer = MeasuredPricer()
+    return pricer
 
 
 def schedule(
@@ -135,21 +156,24 @@ def schedule(
     direction: str = "fwd",
     power_cap_w: Optional[float] = None,
     price: str = "analytic",
+    pricer=None,
 ) -> ExecutionPlan:
     """Per-layer DSE.  `power_cap_w` adds the paper's motivating constraint
     ("data centers quite power consuming"): only engines whose running power
-    fits the cap are eligible; if none fit, the lowest-power engine wins."""
-    if price == "measured":
-        raise NotImplementedError(
-            "measured pricing arrives with the port of the profiling runtime "
-            "(ROADMAP item 7); schedule with price='analytic'")
-    if price != "analytic":
-        raise ValueError(f"unknown pricing source: {price!r}")
+    fits the cap are eligible; if none fit, the lowest-power engine wins.
+
+    ``price="measured"`` prices buildable candidates from the profiling
+    runtime (cache-on-hit, measure-on-miss); pass a configured
+    ``repro_torch.profiling.MeasuredPricer`` as ``pricer`` to control the
+    cache, the device and the measurement budget, else a default one (on
+    the card, at ``profiling.DEFAULT_CACHE_PATH``) is built.
+    """
+    pricer = _resolve_pricer(price, pricer)
     assignments = []
     for spec in net:
         cands = _candidate_costs(spec, engines, batch=batch,
                                  dtype_bytes=dtype_bytes, n_chips=n_chips,
-                                 direction=direction)
+                                 direction=direction, pricer=pricer)
         pool = cands
         if power_cap_w is not None:
             capped = {n: c for n, c in cands.items() if c.power_w <= power_cap_w}

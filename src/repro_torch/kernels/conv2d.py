@@ -17,13 +17,39 @@ from typing import Optional
 import torch
 
 from . import _build
-from .matmul import ACTIVATIONS
+from .matmul import ACTIVATIONS, SMS
 
 SOURCE = "conv2d.cu"
 _ARGTYPES = (_build.PTR,) * 5 + (_build.INT,) * 13 + (_build.PTR,)
 
-# the kernel's tile rows and k slice (csrc/conv2d.cu kBM, kBK)
+# the kernel's tile rows and k slice (csrc/conv2d.cu kBM, kBK), its ring
+# (kStages) and A-row padding (kAPad), its two N tiles (kNarrowN, kWideN)
+# and the blocks per SM it plans for (kBlocksPerSM)
 TILE_M, TILE_K = 64, 32
+STAGES, A_PAD = 2, 4
+NARROW_N, WIDE_N = 96, 128
+BLOCKS_PER_SM = 2
+
+
+def tile_n(m: int, oc: int) -> int:
+    """The N tile the kernel picks for M = N * OH * OW output pixels and OC
+    channels (csrc/conv2d.cu narrow_tile): the one with fewer waves of
+    blocks times columns, the narrow one on a tie."""
+    m_tiles = -(-m // TILE_M)
+
+    def cost(bn):
+        blocks = m_tiles * -(-oc // bn)
+        return -(-blocks // (SMS * BLOCKS_PER_SM)) * bn
+    return NARROW_N if cost(NARROW_N) <= cost(WIDE_N) else WIDE_N
+
+
+def smem_bytes(bn: int) -> int:
+    """Dynamic shared memory of a block with N tile ``bn`` (csrc/conv2d.cu
+    Smem): per stage the TF32 B_hi and B_lo tiles and the fp32 A tile (rows
+    padded), then the per-row patch origins and 1024 bytes of alignment
+    slack."""
+    stage = 2 * bn * TILE_K * 4 + TILE_M * (TILE_K + A_PAD) * 4
+    return STAGES * stage + TILE_M * 16 + 1024
 
 
 def padded_k(ic: int, kh: int, kw: int) -> int:

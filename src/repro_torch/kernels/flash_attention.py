@@ -21,6 +21,19 @@ from . import _build
 
 SOURCE = "flash_attention.cu"
 HEAD_DIMS = (32, 64, 128)
+# query and key rows per tile, and the fp32 body's row padding
+# (csrc/flash_attention.cu BQ, BKV, kPad)
+BQ, BKV, PAD = 64, 64, 4
+
+
+def smem_bytes(d: int, elem_bytes: int) -> int:
+    """Dynamic shared memory of a block at head dim ``d``: the bf16 body's
+    Q, two K and two V tiles, nine mbarriers and 1024 bytes of alignment
+    slack (Tile<D>::kSmem); the fp32 body's padded Q^T, K^T/V and P^T
+    (run_ffma)."""
+    if elem_bytes == 2:
+        return 5 * BKV * d * 2 + 9 * 8 + 1024
+    return 4 * (d * (BQ + PAD) + d * (BKV + PAD) + BKV * (BQ + PAD))
 _ARGTYPES = (_build.PTR,) * 4 + (_build.INT,) * 9 + (
     _build.FLOAT, _build.INT, _build.PTR)
 

@@ -20,6 +20,22 @@ from . import _build
 SOURCE = "lrn.cu"
 _ARGTYPES = ((_build.PTR,) * 2 + (ctypes.c_longlong,) + (_build.INT,) * 2
              + (_build.FLOAT,) * 3 + (_build.INT, _build.PTR))
+# threads per block and the widest window of the vector kernels
+# (csrc/lrn.cu kThreads, kMaxN)
+THREADS, MAX_N = 256, 9
+
+
+def smem_bytes(c: int, n: int, elem_bytes: int) -> int:
+    """Dynamic shared memory of a block of the vector kernel (csrc/lrn.cu
+    launch_vec): one zero-padded fp32 row of squares per pixel of the block
+    (Row<N>::floats), plus 4 floats; 0 where C or n sends the call to the
+    plain kernel (16-byte aligned pointers assumed)."""
+    vec = 16 // elem_bytes
+    if c % vec or c // vec > THREADS or n > MAX_N:
+        return 0
+    off = (n // 2 + 3) // 4 * 4
+    floats = (off + c + n - 1 - n // 2 + 3) // 4 * 4
+    return (THREADS // (c // vec) * floats + 4) * 4
 
 
 def lrn_cuda(x: torch.Tensor, *, local_size: int = 5, alpha: float = 1e-4,

@@ -22,9 +22,10 @@ SOURCE = "matmul.cu"
 ACTIVATIONS = {"none": 0, "relu": 1, "sigmoid": 2, "tanh": 3}
 _ARGTYPES = (_build.PTR,) * 5 + (_build.INT,) * 7 + (_build.PTR,)
 
-# the kernel's tile (csrc/gemm_pipelined.cuh kTileM, kTileN, kTileK) and the
-# card it fills
+# the kernel's tile and ring (csrc/gemm_pipelined.cuh kTileM, kTileN,
+# kTileK, kStages) and the card it fills
 TILE_M, TILE_N, TILE_K = 64, 128, 16
+STAGES = 4
 SMS = 132                      # streaming multiprocessors of an H100 SXM
 BLOCKS_PER_SM = 2              # the fewest blocks per SM the split aims at
 MIN_SLICE_STEPS = 4            # TILE_K steps per slice: the ring's depth
@@ -56,6 +57,13 @@ def split_k(m: int, n: int, k: int) -> tuple[int, int]:
         if best is None or cost < best[0]:
             best = (cost, splits, per)
     return best[1], best[2] * TILE_K
+
+
+def smem_bytes(elem_bytes: int) -> int:
+    """Dynamic shared memory of a block (gemm_pipelined.cuh smem_bytes):
+    STAGES stages of an A tile (TILE_M x TILE_K) and a B tile (TILE_K x
+    TILE_N) of ``elem_bytes`` elements."""
+    return elem_bytes * STAGES * (TILE_M * TILE_K + TILE_K * TILE_N)
 
 
 def matmul_cuda(x: torch.Tensor, w: torch.Tensor,

@@ -66,11 +66,12 @@ def lrn(x: torch.Tensor, *, local_size: int = 5, alpha: float = 1e-4,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    q_offset: Optional[int] = None) -> torch.Tensor:
+                    q_offset: Optional[int] = 0) -> torch.Tensor:
     """q (B, HQ, S, D); k/v (B, HK, T, D); query i at key position
-    i + q_offset, by default T - S (query ends aligned with key ends).  Any
-    S and T: the kernel masks ragged tiles, so nothing is padded and no call
-    is routed to the plain version."""
+    i + q_offset, by default 0 (query starts aligned with key starts, as the
+    JAX package's ``ops.flash_attention`` places them); None aligns query
+    ends with key ends (T - S).  Any S and T: the kernel masks ragged tiles,
+    so nothing is padded and no call is routed to the plain version."""
     if _on_cpu(q):
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset)
@@ -96,7 +97,10 @@ def paged_attention(q: torch.Tensor, k_arena: torch.Tensor,
 # FC layer matching the paper's Eq. 1 (vector-matrix + f)
 def fc(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, *,
        activation: str = "none") -> torch.Tensor:
-    """x (B, n_in); the FC engines flatten a layer's NHWC input first."""
+    """x (B, n_in), or (B, H, W, C) flattened in (H, W, C) order first, as
+    the JAX package's ``ops.fc`` does."""
+    if x.dim() > 2:
+        x = x.reshape(x.shape[0], -1)
     if activation == "softmax":  # softmax stays outside the GEMM kernel
         return torch.softmax(matmul(x, w, b, activation="none"), dim=-1)
     return matmul(x, w, b, activation=activation)

@@ -53,9 +53,17 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 def conv2d_ref(x: torch.Tensor, w: torch.Tensor,
                b: Optional[torch.Tensor] = None, *, stride: int = 1,
                padding: int = 0, activation: str = "none") -> torch.Tensor:
-    """NHWC input, (OC, IC, KH, KW) filters (paper Table I order)."""
-    y = _nhwc(F.conv2d(_nchw(x.float()), w.float(), stride=stride,
-                       padding=padding))
+    """NHWC input, (OC, IC, KH, KW) filters (paper Table I order).  The
+    products stay fp32 on the card: PyTorch lets cuDNN round them to TF32
+    by default (``torch.backends.cudnn.allow_tf32``), which this call turns
+    off for itself."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        y = _nhwc(F.conv2d(_nchw(x.float()), w.float(), stride=stride,
+                           padding=padding))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
     if b is not None:
         y = y + b.float()
     return _activate(y, activation).to(x.dtype)

@@ -209,7 +209,9 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     """tokens (B, S) int -> (logits (B, S, V), cache or None).
 
     With ``emit_cache`` (prefill) the cache holds every layer's K/V in the
-    compute dtype, ``{"layers": [{"k", "v"}, ...], "pos": S}``.  Attention
+    compute dtype, ``{"layers": [{"k", "v"}, ...], "pos": S}``; with an
+    ``attn_window`` shorter than S, only the last ``attn_window`` positions,
+    position p in slot p % attn_window, as the JAX package keeps them.  Attention
     runs through ``cfg.attention_impl``; ``hopper`` launches the
     flash-attention kernel once per layer on a CUDA tensor."""
     _check_dense(cfg)
@@ -227,6 +229,14 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         x = x + _merge_heads(out, p["attn"], cfg)
         x = _mlp(p, x, cfg)
         if emit_cache:
+            w = cfg.attn_window
+            if w is not None and k.shape[2] > w:
+                # rolling buffer of the last w positions, position p in slot
+                # p % w: the layout a windowed decode step writes and reads
+                t = k.shape[2]
+                idx = torch.arange(w, device=k.device) + (t // w) * w
+                idx = torch.where(idx < t, idx, idx - w)
+                k, v = k[:, :, idx], v[:, :, idx]
             caches.append({"k": k.to(cfg.compute_dtype),
                            "v": v.to(cfg.compute_dtype)})
     logits = _logits(params, x, cfg)

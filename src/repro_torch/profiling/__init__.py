@@ -1,0 +1,34 @@
+"""Empirical profiling & cost-model calibration runtime.
+
+CNNLab's middleware decides offload targets from *measured* device
+behaviour; this package is that measurement layer for the port:
+
+* ``bench``     — microbenchmark harness (warmup, CUDA events around each
+  call, median + IQR over repeats) for any buildable engine x LayerSpec;
+* ``cache``     — persistent JSON profile cache keyed by (spec
+  fingerprint, engine, torch version, device name, capability) with
+  load/merge/invalidate;
+* ``calibrate`` — fits per-kind achieved rates into a
+  ``CalibratedDeviceModel`` that drops into ``core/cost_model.py``, and
+  reports prediction error before/after;
+* ``pricer``    — ``MeasuredPricer``, the measure-on-miss pricing source
+  behind ``core.scheduler.schedule(..., price="measured")``.
+
+CLI: ``python -m repro_torch.launch.profile`` (measure + calibrate +
+compare plans); benchmark: ``python -m benchmarks.bench_torch_profiling``.
+"""
+from .bench import Measurement, make_input, profile_network, time_layer
+from .cache import (DEFAULT_CACHE_PATH, ProfileCache, entry_key, environment,
+                    fingerprint, validate_dict)
+from .calibrate import (CalibratedDeviceModel, CalibrationReport,
+                        LayerPrediction, analytic_predicted_time,
+                        calibrate_engine, calibration_report, fit_kind_rates)
+from .pricer import MeasuredPricer
+
+__all__ = [
+    "CalibratedDeviceModel", "CalibrationReport", "DEFAULT_CACHE_PATH",
+    "LayerPrediction", "Measurement", "MeasuredPricer", "ProfileCache",
+    "analytic_predicted_time", "calibrate_engine", "calibration_report",
+    "entry_key", "environment", "fingerprint", "fit_kind_rates",
+    "make_input", "profile_network", "time_layer", "validate_dict",
+]

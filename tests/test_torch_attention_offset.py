@@ -6,15 +6,17 @@ The reference's ``attend`` places query i at key position i for every impl:
 ``dot`` and ``chunked`` by construction, ``pallas`` because its kernel
 counts query positions from the block start.  The port's ``hopper`` impl
 passes ``q_offset=0`` down to the kernel (on the CPU, to its plain version
-``ref.attention_ref``), while ``ops.flash_attention`` keeps query ends
-aligned with key ends by default.  Inputs come from numpy seeds and go
-through both packages as numpy arrays.
+``ref.attention_ref``), and ``ops.flash_attention`` defaults to 0 as the
+reference's ``ops.flash_attention`` does; ``ref.attention_ref`` keeps query
+ends aligned with key ends by default, as the reference's does.  Inputs
+come from numpy seeds and go through both packages as numpy arrays.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jops
 from repro.models import attention as jattn
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention
@@ -50,6 +52,17 @@ def test_smallest_case_matches_the_reference_pallas_impl():
                                    impl="pallas", causal=True))
     got = attention.attend(*map(torch.from_numpy, (q, k, v)), impl="hopper",
                            causal=True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+
+
+def test_ops_default_matches_the_reference_ops():
+    # the reference's ops.flash_attention (its Pallas kernel, interpret mode
+    # on the CPU) puts the one query at key 0, which holds a zero value
+    q, k, v = _smallest_case()
+    want = np.asarray(jops.flash_attention(*map(jnp.asarray, (q, k, v)),
+                                           causal=True))
+    got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)), causal=True)
+    assert np.all(want == 0.0)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
 
 
@@ -101,8 +114,14 @@ def test_attention_ref_q_offset_against_explicit_masks(q_offset, window):
                             window=window, q_offset=q_offset)
     np.testing.assert_allclose(got.numpy(), _masked_attention(q, k, v, mask),
                                rtol=1e-5, atol=1e-5)
-    # ops (the CPU route) passes the offset through and defaults to T - S
+    # ops (the CPU route) passes the offset through; without one it places
+    # query i at key i, as the reference's ops.flash_attention does
     via_ops = ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
                                   causal=True, window=window,
                                   q_offset=q_offset)
     assert torch.equal(via_ops, got)
+    by_default = ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                     causal=True, window=window)
+    assert torch.equal(by_default, ref.attention_ref(
+        *map(torch.from_numpy, (q, k, v)), causal=True, window=window,
+        q_offset=0))

@@ -258,3 +258,52 @@ def test_paged_splits_cover_each_page_up_to_pos_once(bs):
             if pos < nb * bs:
                 assert wider == [list(paged_attention.split_pages(
                     pos, bs, nb, s)) for s in range(grid)]
+
+
+# ------------------------------------------- shared memory of every kernel
+# the Python mirrors the paper bench's Table III rows read
+def test_conv2d_pipeline_constants_match_the_kernel():
+    c = _cu_constants("conv2d.cu")
+    assert (c["kStages"], c["kAPad"], c["kNarrowN"], c["kWideN"],
+            c["kBlocksPerSM"], c["kSMs"]) == (
+        conv2d.STAGES, conv2d.A_PAD, conv2d.NARROW_N, conv2d.WIDE_N,
+        conv2d.BLOCKS_PER_SM, matmul.SMS)
+    for tile_n in (conv2d.NARROW_N, conv2d.WIDE_N):
+        assert conv2d.smem_bytes(tile_n) == _conv2d_smem(tile_n)
+    # Conv5 at batch 64: "507 blocks in 2 waves rather than 338 in 2, each
+    # a third narrower" (csrc/conv2d.cu); Conv3's 384 channels take 128
+    assert conv2d.tile_n(64 * 13 * 13, 256) == conv2d.NARROW_N
+    assert conv2d.tile_n(64 * 13 * 13, 384) == conv2d.WIDE_N
+
+
+def test_matmul_ring_matches_the_kernel():
+    text = (_build.CSRC / "gemm_pipelined.cuh").read_text()
+    assert int(re.search(r"kStages = (\d+);", text).group(1)) == \
+        matmul.STAGES
+    assert "sizeof(T) * (size_t)kStages * kStageElems" in text
+    assert "kStageElems = kTileM * kTileK + kTileK * kTileN" in text
+    assert matmul.smem_bytes(4) == 49152 and matmul.smem_bytes(2) == 24576
+
+
+def test_lrn_constants_match_the_kernel():
+    c = _cu_constants("lrn.cu")
+    assert (c["kThreads"], c["kMaxN"]) == (lrn.THREADS, lrn.MAX_N)
+    # LRN1 (C 96, n 5): ten pixel rows of 104 floats in fp32, 21 in bf16
+    assert lrn.smem_bytes(96, 5, 4) == (10 * 104 + 4) * 4
+    assert lrn.smem_bytes(96, 5, 2) == (21 * 104 + 4) * 4
+    # the plain kernel's routes stage nothing
+    assert lrn.smem_bytes(7, 5, 4) == lrn.smem_bytes(16, 11, 4) == 0
+
+
+def test_flash_tiles_match_the_kernel():
+    text = (_build.CSRC / "flash_attention.cu").read_text()
+    assert re.search(r"constexpr int BQ = (\d+), BKV = (\d+);",
+                     text).groups() == (str(flash_attention.BQ),
+                                        str(flash_attention.BKV))
+    assert int(re.search(r"kThreads = 256, kPad = (\d+);", text).group(1)) \
+        == flash_attention.PAD
+    assert "kSmem = 5 * (size_t)kBytes + 9 * 8 + 1024" in text
+    assert "kBytes = 64 * D * 2" in text
+    for d in flash_attention.HEAD_DIMS:
+        for elem in (2, 4):
+            assert 0 < flash_attention.smem_bytes(d, elem) <= SMEM_PER_BLOCK

@@ -202,9 +202,20 @@ def test_kernel_only_plan_puts_every_layer_on_hopper():
 
 
 def test_measured_pricing_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        scheduler.schedule(lm.alexnet_full_spec(), engines.DEFAULT_ENGINES,
-                           price="measured")
+    """The name is historical: measured pricing is ported now.  With an
+    empty cache and no measuring on a miss, a measured schedule falls back
+    to the analytic model for every candidate, as the reference's does, so
+    it equals the analytic plan exactly; an unknown source still raises."""
+    from repro_torch.profiling import MeasuredPricer, ProfileCache
+    net = lm.alexnet_full_spec()
+    pricer = MeasuredPricer(ProfileCache(device="cpu"), measure_on_miss=False,
+                            autosave=False, device="cpu")
+    measured = scheduler.schedule(net, engines.DEFAULT_ENGINES, batch=64,
+                                  price="measured", pricer=pricer)
+    analytic = scheduler.schedule(net, engines.DEFAULT_ENGINES, batch=64)
+    assert measured.pricing == "measured" and (pricer.hits,
+                                               pricer.misses) == (0, 0)
+    assert measured.assignments == analytic.assignments
     with pytest.raises(ValueError, match="unknown pricing"):
         scheduler.schedule(lm.alexnet_full_spec(), engines.DEFAULT_ENGINES,
                            price="guess")

@@ -21,7 +21,8 @@ _BANNED = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+            + sorted((REPO / "benchmarks").glob("bench_torch_*.py")))
 
 
 def _imported_modules(path: Path):
@@ -45,8 +46,14 @@ def test_every_module_imports_with_jax_and_repro_blocked():
         repro_torch.__path__, prefix="repro_torch.")]
     for name in ("models.alexnet", "models.transformer", "models.attention",
                  "configs.qwen2_1_5b", "serving.engine_loop",
-                 "serving.driver", "serving.kv_pool", "obs.trace"):
+                 "serving.driver", "serving.kv_pool", "obs.trace",
+                 "profiling.cache", "profiling.bench", "profiling.calibrate",
+                 "profiling.pricer", "launch.profile"):
         assert f"repro_torch.{name}" in modules
+    benches = sorted(p.stem for p in (REPO / "benchmarks").glob(
+        "bench_torch_*.py"))
+    assert benches == ["bench_torch_paper", "bench_torch_profiling"]
+    modules += [f"benchmarks.{b}" for b in benches]
     code = ("import importlib, sys\n"
             "for banned in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[banned] = None\n"
@@ -56,7 +63,7 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "               for m in sys.modules if sys.modules[m])\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
-                         env={"PYTHONPATH": str(REPO / "src"),
+                         env={"PYTHONPATH": f"{REPO / 'src'}:{REPO}",
                               "PATH": "/usr/bin:/bin"})
     assert res.returncode == 0, res.stderr
 

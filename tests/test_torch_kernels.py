@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import engines
 from repro_torch.core.layer_model import FCSpec
@@ -73,8 +74,7 @@ def test_fc_bias_activation(rng, activation, via):
 
 
 def test_fc_flattens_nhwc(rng):
-    # FC6 reads Pool5's (B, 6, 6, C) output flattened in (H, W, C) order;
-    # the FC layer of either engine owns that flatten (ops.fc takes 2-D)
+    # FC6 reads Pool5's (B, 6, 6, C) output flattened in (H, W, C) order
     jx, tx = _pair(rng.normal(size=(2, 3, 3, 4)), "float32")
     jw, tw = _pair(rng.normal(size=(36, 5)), "float32")
     want = jref.fc_ref(jx.reshape(2, -1), jw, activation="relu")
@@ -83,7 +83,43 @@ def test_fc_flattens_nhwc(rng):
         _assert_close(engine.build(spec)(tx, {"w": tw}), want, "float32")
 
 
+def test_ops_fc_flattens_as_the_reference_ops_does():
+    # the smallest case: x (1, 1, 1, 2) of ones against w (2, 1) of ones
+    got = ops.fc(torch.ones(1, 1, 1, 2), torch.ones(2, 1))
+    assert got.shape == (1, 1) and got.tolist() == [[2.0]]
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jops.fc(jnp.ones((1, 1, 1, 2)),
+                                        jnp.ones((2, 1)))))
+
+
+def test_ops_fc_at_fc6_matches_the_reference_ops():
+    # FC6's real shape: Pool5's (N, 6, 6, 256) output against (9216, 4096)
+    rng = np.random.default_rng(7)
+    jx, tx = _pair(rng.normal(size=(2, 6, 6, 256)), "float32")
+    jw, tw = _pair(rng.normal(size=(9216, 4096)) / np.sqrt(9216), "float32")
+    jb, tb = _pair(rng.normal(size=(4096,)), "float32")
+    got = ops.fc(tx, tw, tb, activation="relu")
+    assert got.shape == (2, 4096)
+    _assert_close(got, jops.fc(jx, jw, jb, activation="relu"), "float32")
+
+
 # ---------------------------------------------------------------- conv2d
+def test_conv2d_ref_keeps_fp32_products_on_the_card(monkeypatch):
+    # PyTorch lets cuDNN round fp32 convolutions to TF32 by default; the
+    # plain version (the torch engine's conv) turns that off for its call
+    # and restores the caller's setting
+    seen, conv2d = [], torch.nn.functional.conv2d
+
+    def conv(*args, **kwargs):
+        seen.append(torch.backends.cudnn.allow_tf32)
+        return conv2d(*args, **kwargs)
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(ref.F, "conv2d", conv)
+    ref.conv2d_ref(torch.ones(1, 4, 4, 2), torch.ones(3, 2, 3, 3))
+    assert seen == [False] and torch.backends.cudnn.allow_tf32 is True
+
+
 @pytest.mark.parametrize("via", ["ref", "ops"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hw,cin,cout,kk,stride,pad", [
@@ -224,12 +260,12 @@ def test_attention_windowed(rng, window, via):
 
 @pytest.mark.parametrize("s,t", [(100, 100), (37, 100), (1, 100)])
 def test_attention_aligns_query_ends(s, t):
-    # unaligned lengths, and fewer queries than keys (decode-style): query i
-    # sits at position i + t - s in both packages
+    # unaligned lengths, and fewer queries than keys (decode-style): with
+    # q_offset None, query i sits at position i + t - s in both packages
     rng = np.random.default_rng(1)
     (jq, tq), (jk, tk), (jv, tv) = (
         _pair(rng.normal(size=(1, 2, n, 32)), "float32") for n in (s, t, t))
-    _assert_close(ops.flash_attention(tq, tk, tv, causal=True),
+    _assert_close(ops.flash_attention(tq, tk, tv, causal=True, q_offset=None),
                   jref.attention_ref(jq, jk, jv, causal=True), "float32")
 
 

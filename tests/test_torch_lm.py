@@ -159,6 +159,36 @@ def test_forward_logits_and_cache_match(weights, impl):
     assert int(cache["pos"]) == 21
 
 
+def test_windowed_prefill_cache_is_a_rolling_buffer(weights):
+    """attn_window 4 over 10 tokens: the JAX package keeps the last four
+    positions, position p in slot p % 4 (slots hold 8, 9, 6, 7), the layout
+    its windowed decode step reads; the port's cache is the same."""
+    jp, pp = weights
+    tokens = np.random.default_rng(6).integers(0, JCFG.vocab, size=(1, 10),
+                                               dtype=np.int32)
+    jcfg = dataclasses.replace(JCFG, attn_window=4)
+    pcfg = dataclasses.replace(PCFG, attn_window=4)
+    _, jcache = JT.forward(jp, jcfg, jnp.asarray(tokens), emit_cache=True)
+    _, cache = PT.forward(pp, pcfg, torch.from_numpy(tokens),
+                          emit_cache=True)
+    # layer 0 within 2e-6 (the two frameworks' rope differs by up to
+    # 1.2e-6 here); later layers read attention outputs, whose summation
+    # order differs too, at the 1e-5 of test_forward_logits_and_cache_match
+    for name in ("k", "v"):
+        want = np.asarray(jcache["layers"][0][0][name])
+        for i, layer in enumerate(cache["layers"]):
+            assert tuple(layer[name].shape) == want[i].shape == (1, 2, 4, 16)
+            _close(layer[name], want[i], 2e-6 if i == 0 else 1e-5)
+    # layer 0's K and V come before any attention, so the unwindowed cache
+    # holds them at every position: slot s holds position (8, 9, 6, 7)[s]
+    _, full = PT.forward(pp, PCFG, torch.from_numpy(tokens), emit_cache=True)
+    for slot, p in enumerate((8, 9, 6, 7)):
+        for name in ("k", "v"):
+            assert torch.equal(cache["layers"][0][name][:, :, slot],
+                               full["layers"][0][name][:, :, p])
+    assert int(cache["pos"]) == 10
+
+
 def test_one_paged_decode_step_matches(weights):
     """One block-paged slot step with an inactive slot, shuffled pages and
     a position on a page boundary: logits, positions and the written
