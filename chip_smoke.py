@@ -86,15 +86,32 @@ Phases, each of which raises (and so exits nonzero) on a failed check:
              "chunked" impl within PREFILL_RTOL of their largest magnitude.
              Prints ms per forward.
 7. serve   — EngineLoop.run of 8 requests (prompt 128, 32 new tokens,
-             8 slots, pages of 16) on the same model with the paged kernel;
-             the paged kernel must launch, every request must finish.
-             Holds one decode step's logits against the "ref" impl
-             (DECODE_RTOL), serves the same requests with "ref" as well and
-             reports tok/s, TTFT p50 and the greedy-token agreement of the
-             two runs (reported, not gated: the kernel is close to the plain
-             version, not bitwise equal).
+             8 slots, pages of 16) on the same model with the paged kernel,
+             each step a replay of the engine's CUDA graph (captured by
+             warmup() before the counts are set to 0); the paged kernel
+             must launch once per layer and step, counted through the
+             replays, and every request must finish.  Holds one decode
+             step's logits against the "ref" impl (DECODE_RTOL), serves the
+             same requests with "ref" as well and reports tok/s, TTFT p50
+             and the greedy-token agreement of the two runs (reported, not
+             gated: the kernel is close to the plain version, not bitwise
+             equal).
+8. serve-entry — repro_torch.serving.api.serve(), the entry point behind
+             `python -m repro_torch.launch.serve`, on the full-width model
+             (scale "full": all 28 layers, weights from seed 0), 8 requests
+             of the serve CLI's mixed workload (prompts 64 or 128, 4-32 new
+             tokens), 8 slots, rate 1e9.  The paged layout with the graph
+             must launch the paged kernel (steps + the one eager warm-up
+             step) x 28 times and nothing else, finish every request and
+             give the eager step's tokens bit for bit; one decode step's
+             logits and state after a graph replay must equal an eager
+             step's from the same state.  The dense layout and the static
+             server must finish all 8 requests, and a --trace file must
+             pass benchmarks/check_regression.py's validate_trace.  Prints
+             tok/s and TTFT p50 of the graph, eager, dense and static runs,
+             in turns, median of three.
 
-Every main-path phase (4, 4b, 6, 7) sets every kernel's launch count to 0
+Every main-path phase (4, 4b, 6, 7, 8) sets every kernel's launch count to 0
 just before it and reads them all just after (4b's count covers its
 profile and its plan's run).  The last line is {"ok": true,
 "device": {...}}; the line before it holds the card's name and power limit,
@@ -104,7 +121,7 @@ plan at batch 64 and its launches are those of phase 4 (per plan under
 "launches_by_plan"); for the attention kernels the times are summed over
 the 28 layers of one prefill forward (flash) or one decode step of the serve
 phase (paged), at the shapes those phases give them, and the launches are
-those of phase 6 (flash) and 7 (paged).  "launches_by_phase" gives every
+those of phase 6 (flash) and 8 (paged).  "launches_by_phase" gives every
 kernel's count in every main-path phase.
 Without a card, or outside a checkout of the repository, it exits nonzero
 before printing any result.  Imports nothing of JAX or of the JAX package.
@@ -139,6 +156,9 @@ LAYER_RTOL, LOGP_ATOL = 3e-5, 2e-4       # ~10x the card's 2.8e-6, 1.5e-5
 # two plain prefill impls (dot, chunked) differ by as well
 PREFILL_RTOL, DECODE_RTOL = 0.1, 0.1
 PROMPT, GEN, SLOTS, PAGE = 128, 32, 8, 16            # the serve phase
+# phase 8: the serve CLI's options for qwen2-1.5B at full width and depth
+SERVE_ENTRY = dict(scale="full", slots=SLOTS, prompt_len=PROMPT,
+                   gen_len=GEN, requests=8, rate=1e9)
 CNN_KERNELS = ("matmul", "conv2d", "pool", "lrn")
 KERNEL_OF = {"conv": "conv2d", "norm": "lrn", "pool": "pool", "fc": "matmul"}
 PROFILE_WARMUP, PROFILE_REPEATS = 3, 15     # the measured phase's profile
@@ -1148,22 +1168,29 @@ def phase_serve(torch, kern, cfg, params):
                                   prompt_lens=(PROMPT,), gen_lens=(GEN,),
                                   seed=3)
 
-    def serve(c, reqs):
+    def loop_for(c):
+        """A loop with its step captured (warmup), ready to run."""
         loop = EngineLoop(c, params, n_slots=SLOTS, max_seq=max_seq,
                           block_size=PAGE)
+        loop.warmup()
         torch.cuda.synchronize()
+        return loop
+
+    def serve(loop, reqs):
         metrics = loop.run(reqs)
         torch.cuda.synchronize()
         return metrics.summary()
 
     # first-call costs: a short request through each impl
     for c in (hopper, ref_cfg):
-        serve(c, synthetic_workload(1, rate=1e9, vocab=cfg.vocab,
-                                    prompt_lens=(4,), gen_lens=(2,), seed=9))
+        serve(loop_for(c), synthetic_workload(
+            1, rate=1e9, vocab=cfg.vocab, prompt_lens=(4,), gen_lens=(2,),
+            seed=9))
+    loop = loop_for(hopper)
     for fn in kern.values():
         fn.launches = 0
     reqs = workload()
-    summary = serve(hopper, reqs)
+    summary = serve(loop, reqs)
     launches = {name: fn.launches for name, fn in kern.items()}
     steps = summary["steps"]
     print(f"[serve] qwen2-1.5b hopper requests_done="
@@ -1180,7 +1207,7 @@ def phase_serve(torch, kern, cfg, params):
           f"{steps} steps x {cfg.n_layers} layers and nothing else")
 
     ref_reqs = workload()
-    ref_summary = serve(ref_cfg, ref_reqs)
+    ref_summary = serve(loop_for(ref_cfg), ref_reqs)
     agree = np.mean([np.mean(np.asarray(a.output) == np.asarray(b.output))
                      for a, b in zip(reqs, ref_reqs)])
     print(f"[serve] qwen2-1.5b ref tok/s={ref_summary['tok_per_s']:.1f} "
@@ -1190,7 +1217,7 @@ def phase_serve(torch, kern, cfg, params):
 
     # one decode step, kernel against plain, from a live mid-decode state
     pool = KVPool(SLOTS, max_seq, block_size=PAGE)
-    eng = SlotEngine(hopper, params, pool)
+    eng = SlotEngine(hopper, params, pool, kv_layout="paged")
     for r in workload()[:SLOTS - 1]:       # the last slot stays inactive
         r.slot = pool.alloc(r.rid, r.total_tokens)
         eng.bind(r, steps_total=r.prompt_len + r.max_new_tokens - 1)
@@ -1218,6 +1245,173 @@ def phase_serve(torch, kern, cfg, params):
     check(rel <= DECODE_RTOL, f"decode-step logits differ from the ref impl "
           f"by {rel:.3e} of their largest magnitude")
     return launches, summary, ref_summary
+
+
+def serve_options(api, **fields):
+    """The serve CLI's options at phase 8's settings, leaf fields by name."""
+    options = api.ServeOptions()
+    groups = options.flat_fields()
+    for name, value in dict(SERVE_ENTRY, **fields).items():
+        setattr(getattr(options, groups[name]), name, value)
+    return options
+
+
+def graph_step_matches_eager(torch, cfg, params) -> None:
+    """One decode step from a live mid-decode state, eager and as a replay
+    of the engine's graph: the same logits and the same state, bit for
+    bit."""
+    import dataclasses
+    from repro_torch.serving import SlotEngine
+    from repro_torch.serving.kv_pool import KVPool
+    from repro_torch.serving.request import synthetic_workload
+
+    hopper = dataclasses.replace(cfg, paged_attention_impl="hopper")
+    max_seq = PROMPT + GEN
+    pool = KVPool(SLOTS, max_seq, block_size=PAGE)
+    eng = SlotEngine(hopper, params, pool, kv_layout="paged")
+    for r in synthetic_workload(SLOTS - 1, rate=1e9, vocab=cfg.vocab,
+                                prompt_lens=(PROMPT,), gen_lens=(GEN,),
+                                seed=5):
+        r.slot = pool.alloc(r.rid, r.total_tokens)
+        eng.bind(r, steps_total=r.prompt_len + r.max_new_tokens - 1)
+    eng.dispatch(PROMPT + GEN // 4, eng.active)      # replays the graph
+    replayed = eng.logits                # the graph's own output buffer
+    state = [eng.cache["pos"], eng._last_tok, eng._out_buf] + [
+        a for layer in eng.cache["layers"] for a in layer.values()]
+    saved = [t.clone() for t in state]
+    with torch.no_grad():
+        eng._step()                      # the same step, eagerly
+    eager = eng.logits.clone()
+    eager_state = [t.clone() for t in state]
+    for t, s in zip(state, saved):
+        t.copy_(s)
+    eng._graph.replay()
+    torch.cuda.synchronize()
+    same_state = all(torch.equal(a, b) for a, b in zip(state, eager_state))
+    live = torch.tensor(eng.active, device="cuda")
+    print(f"[serve-entry] one decode step, graph replay vs eager: logits "
+          f"bitwise equal={torch.equal(replayed, eager)}, state bitwise "
+          f"equal={same_state}, live-slot max_abs_diff="
+          f"{(replayed[live].float() - eager[live].float()).abs().max():.3e}",
+          flush=True)
+    check(torch.equal(replayed, eager) and same_state,
+          "a replay of the captured step differs from the eager step")
+
+    # ms per step inside a burst, replayed and eager (16 more steps of the
+    # same slots, still short of max_seq): whether the replays leave the
+    # card idle between steps
+    def per_step_ms(step) -> float:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(8):
+            step()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / 8
+
+    with torch.no_grad():
+        graph_ms = per_step_ms(eng._graph.replay)
+        eager_ms = per_step_ms(eng._step)
+    print(f"[serve-entry] ms per step in a burst (CUDA events, 8 steps): "
+          f"graph replay {graph_ms:.3f}, eager {eager_ms:.3f}", flush=True)
+
+
+def phase_serve_entry(torch, kern, cfg, params):
+    """serve() through the entry point: graph vs eager bitwise, launches
+    counted through the replays, the dense layout, the static server and
+    the trace; tok/s and TTFT p50 of each in turns."""
+    sys.path.insert(0, str(ROOT))
+    from benchmarks.check_regression import validate_trace
+    from repro_torch.serving import SlotEngine, api
+
+    n_req = SERVE_ENTRY["requests"]
+
+    def done(report) -> int:
+        """Requests that got all their tokens."""
+        if report.static_tokens is not None:
+            return sum(t.shape[0] for t in report.static_tokens)
+        return sum(len(r.output) == r.max_new_tokens
+                   for r in report.requests)
+
+    runs = {"graph": dict(fields={}, kw={}),
+            "eager": dict(fields={}, kw={"cuda_graph": False}),
+            "dense": dict(fields={"kv_layout": "dense"}, kw={}),
+            "static": dict(fields={"static_batching": True}, kw={})}
+
+    def run(name, **fields):
+        report = api.serve(serve_options(api, **runs[name]["fields"],
+                                         **fields), **runs[name]["kw"])
+        torch.cuda.synchronize()
+        return report
+
+    t0 = time.perf_counter()
+    for name in runs:                    # first-call costs of each path
+        run(name, requests=1, gen_len=2)
+    print(f"[serve-entry] first calls in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for fn in kern.values():
+        fn.launches = 0
+    graph = run("graph")
+    launches = {name: fn.launches for name, fn in kern.items()}
+    steps = graph.summary["steps"]
+    want = (steps + SlotEngine.WARMUP_STEPS) * cfg.n_layers
+    print(f"[serve-entry] qwen2-1.5b paged graph requests_done="
+          f"{graph.summary['requests_done']} steps={steps} launches="
+          f"{launches} (expected paged_attention x (steps + "
+          f"{SlotEngine.WARMUP_STEPS} warm-up) x {cfg.n_layers} = {want})",
+          flush=True)
+    check(graph.summary["requests_done"] == n_req and done(graph) == n_req,
+          f"graph run finished {done(graph)} of {n_req} requests")
+    check(launches["paged_attention"] == want
+          and sum(launches.values()) == want,
+          f"serve-entry launches {launches}, expected paged_attention x "
+          f"{want} and nothing else")
+    eager = run("eager")
+    same = graph.outputs == eager.outputs
+    print(f"[serve-entry] graph tokens bitwise equal to eager: {same}",
+          flush=True)
+    check(same, "the graph's greedy tokens differ from the eager step's")
+    graph_step_matches_eager(torch, cfg, params)
+
+    trace = ROOT / "build" / "serve_entry_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    traced = run("graph", trace=str(trace), slo_report=True)
+    checks = validate_trace(str(trace))
+    print(f"[serve-entry] trace: {len(json.loads(trace.read_text())['traceEvents'])}"
+          f" events; " + "; ".join(f"{c}={ok}" for c, ok, _ in checks),
+          flush=True)
+    check(all(ok for _, ok, _ in checks), f"trace checks {checks}")
+    check(done(traced) == n_req, "traced run did not finish")
+
+    # tok/s and TTFT p50 of each path, in turns, median of three
+    rows = {name: [] for name in runs}
+    for _ in range(3):
+        for name in runs:
+            report = run(name)
+            check(done(report) == n_req, f"{name} run finished "
+                  f"{done(report)} of {n_req} requests")
+            rows[name].append((report.summary["tok_per_s"],
+                               report.summary.get("ttft_p50_s")))
+    med = {}
+    for name, vals in rows.items():
+        tok = statistics.median(v[0] for v in vals)
+        ttft = (None if vals[0][1] is None
+                else statistics.median(v[1] for v in vals))
+        med[name] = tok
+        print(f"[serve-entry] {name}: tok/s={tok:.1f} (runs "
+              f"{', '.join(f'{v[0]:.1f}' for v in vals)}) ttft_p50_s="
+              + ("n/a (static: tokens land at batch end)" if ttft is None
+                 else f"{ttft:.4f}"), flush=True)
+    print(f"[serve-entry] graph/eager tok/s = "
+          f"{med['graph'] / med['eager']:.2f}x", flush=True)
+    dense_agree = np.mean([np.mean(np.asarray(graph.outputs[rid])
+                                   == np.asarray(toks))
+                           for rid, toks in run("dense").outputs.items()])
+    print(f"[serve-entry] dense-layout tokens equal to the paged kernel's: "
+          f"{dense_agree:.4f} (reported, not gated: the kernel is close to "
+          f"the plain attention, not bitwise equal)", flush=True)
+    return launches
 
 
 def main() -> None:
@@ -1277,7 +1471,7 @@ def main() -> None:
     # 5. the attention kernels against their plain versions
     lm = phase_lm_kernels(torch, F, ref, kern)
 
-    # 6-7. qwen2-1.5B at full width: prefill, then serving
+    # 6-8. qwen2-1.5B at full width: prefill, serving, the serve entry
     t0 = time.perf_counter()
     params = T.compute_params(T.init_params(QWEN2, seed=0), QWEN2)
     torch.cuda.synchronize()
@@ -1285,9 +1479,11 @@ def main() -> None:
           f"bf16 copy in {time.perf_counter() - t0:.1f} s", flush=True)
     prefill_launches = phase_prefill(torch, kern, QWEN2, params)
     serve_launches, _, _ = phase_serve(torch, kern, QWEN2, params)
+    entry_launches = phase_serve_entry(torch, kern, QWEN2, params)
     by_phase = {"alexnet": launches, "measured": measured_launches,
-                "prefill": prefill_launches, "serve": serve_launches}
-    home = {"flash_attention": "prefill", "paged_attention": "serve"}
+                "prefill": prefill_launches, "serve": serve_launches,
+                "serve_entry": entry_launches}
+    home = {"flash_attention": "prefill", "paged_attention": "serve_entry"}
 
     rows = []
     for name in kern:

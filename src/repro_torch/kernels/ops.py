@@ -21,6 +21,10 @@ from .matmul import matmul_cuda
 from .paged_attention import paged_attention_cuda
 from .pooling import pool_cuda
 
+# every kernel's wrapper; each counts the launches it makes in ``launches``
+WRAPPERS = (matmul_cuda, conv2d_cuda, pool_cuda, lrn_cuda,
+            flash_attention_cuda, paged_attention_cuda)
+
 
 def _on_cpu(x: torch.Tensor) -> bool:
     return x.device.type == "cpu"

@@ -1,6 +1,8 @@
 """The config-driven transformer, dense all-attention path (qwen2, llama-style
-decoders): full-sequence forward (training shape and prefill) and the
-block-paged slot decode step the serving engine runs.
+decoders): full-sequence forward (training shape and prefill), the decode
+step over a dense cache (the static server's; a rolling buffer for windowed
+configs), and the slot decode steps the serving engine runs, on the dense
+slot cache and on the block-paged one.
 
 Plain functions on explicit parameters, as in the JAX package: ``params`` is
 a dict holding ``embed`` (V, D), ``final_norm`` (D,), ``layers`` — one dict
@@ -9,9 +11,10 @@ per layer with ``ln1``, ``attn`` (``wq wk wv wo`` [+ ``bq bk bv``]),
 are untied.  The JAX package stacks layers for ``lax.scan``;
 ``models.convert.params_from_numpy`` unstacks its tree into this layout.
 
-Unlike the JAX package's pure functions, the decode step updates the slot
-cache in place (the KV arenas, positions): it is the serving engine's state,
-and copying a 28-layer arena every token would double the step's traffic.
+Unlike the JAX package's pure functions, the decode steps update the cache
+in place (the KV rows or arenas, the positions): it is the serving engine's
+state, copying a 28-layer cache every token would double the step's traffic,
+and a CUDA graph replaying the step reads and writes the same buffers.
 
 MoE, SSM and recurrent blocks, cross-attention and the encoder-decoder are
 not ported yet: configs that need them are refused.
@@ -247,6 +250,124 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
+# Decode: one token per sequence against a cache
+# ---------------------------------------------------------------------------
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
+               device="cuda") -> Dict[str, Any]:
+    """Dense decode cache: each layer's K and V as ``(batch, n_kv_heads, t,
+    head_dim)`` in the compute dtype, ``t = min(attn_window, max_seq)`` (a
+    rolling buffer, position p in slot p % t, for a windowed config), and
+    one position ``pos`` shared by the batch."""
+    _check_dense(cfg)
+    t = min(cfg.attn_window or max_seq, max_seq)
+    shape = (batch, cfg.n_kv_heads, t, cfg.hd)
+
+    def rows():
+        return torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
+
+    return {"layers": [{"k": rows(), "v": rows()}
+                       for _ in range(cfg.n_layers)],
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def init_slot_cache(cfg: ModelConfig, n_slots: int, max_seq: int, *,
+                    device="cuda") -> Dict[str, Any]:
+    """Dense cache for the continuous-batching engine: each batch row is a
+    slot owned by at most one request, with its own position, so ``pos`` is
+    (n_slots,).  Otherwise :func:`init_cache`'s layout."""
+    cache = init_cache(cfg, n_slots, max_seq, device=device)
+    cache["pos"] = torch.zeros((n_slots,), dtype=torch.int32, device=device)
+    return cache
+
+
+def reset_slot_state(cfg: ModelConfig, cache: Dict[str, Any],
+                     slot: int) -> Dict[str, Any]:
+    """Clear one slot's per-request state before binding a new request, in
+    either slot layout: its position.  KV rows and pages need no clearing
+    (position masks hide stale entries), and the paged block tables
+    survive.  In place; returns the cache."""
+    cache["pos"][slot] = 0
+    return cache
+
+
+def _qkv_at(p: Params, x: torch.Tensor, cfg: ModelConfig,
+            pos: torch.Tensor):
+    """The block's projections, rotated to ``pos``: (B,) per-slot positions
+    or one scalar position for the whole batch."""
+    h_in = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _project_qkv(p["attn"], h_in, cfg)
+    posq = pos.reshape(-1, 1, 1)
+    return (apply_rope(q, posq, cfg.rope_theta),
+            apply_rope(k, posq, cfg.rope_theta), v)
+
+
+def _finish_block(p: Params, x: torch.Tensor, out: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    x = x + _merge_heads(out, p["attn"], cfg)
+    return _mlp(p, x, cfg)
+
+
+def _dense_attn_block(p: Params, x: torch.Tensor, layer: Dict[str, Any],
+                      cfg: ModelConfig, pos: torch.Tensor,
+                      active: Optional[torch.Tensor]) -> torch.Tensor:
+    q, k, v = _qkv_at(p, x, cfg, pos)
+    k_cache, v_cache = layer["k"], layer["v"]
+    b, t = x.shape[0], k_cache.shape[2]
+    if cfg.attn_window is not None:
+        slot = pos % t                       # rolling buffer
+    else:
+        slot = torch.clamp(pos, max=t - 1)
+    rows = torch.arange(b, device=x.device)
+    slot = slot.long().expand(b)
+    for cache_rows, new in ((k_cache, k), (v_cache, v)):
+        new = new[:, :, 0].to(cache_rows.dtype)           # (B, HK, D)
+        if active is not None:               # inactive slots keep their row
+            new = torch.where(active[:, None, None], new,
+                              cache_rows[rows, :, slot])
+        cache_rows[rows, :, slot] = new
+    out = attn_lib.decode_attention(q, k_cache, v_cache, pos=pos,
+                                    window=cfg.attn_window)
+    return _finish_block(p, x, out, cfg)
+
+
+def _decode_step_impl(params: Params, cfg: ModelConfig,
+                      cache: Dict[str, Any], tokens: torch.Tensor,
+                      active: Optional[torch.Tensor]):
+    _check_dense(cfg)
+    pos = cache["pos"]
+    x = _embed(params, tokens, cfg)
+    for p, layer in zip(params["layers"], cache["layers"]):
+        x = _dense_attn_block(p, x, layer, cfg, pos, active)
+    logits = _logits(params, x, cfg)
+    pos.copy_(pos + 1 if active is None else torch.where(active, pos + 1,
+                                                         pos))
+    return logits, cache
+
+
+def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Any],
+                tokens: torch.Tensor):
+    """One decode step of the whole batch at the cache's one position (the
+    static server).  tokens (B, 1) -> (logits (B, 1, V), cache), the cache
+    updated in place."""
+    return _decode_step_impl(params, cfg, cache, tokens, None)
+
+
+def decode_step_slots(params: Params, cfg: ModelConfig,
+                      cache: Dict[str, Any], tokens: torch.Tensor,
+                      active: torch.Tensor):
+    """One engine step over independent slots on the dense slot cache.
+
+    tokens (B, 1) int: each slot's next token; active (B,) bool;
+    ``cache["pos"]`` (B,) int32.  Each active slot's K/V is written at its
+    position and the position advances; an inactive slot keeps its rows and
+    position.  The per-slot math is :func:`decode_step`'s, which makes
+    continuous batching's tokens those of the static server.  Returns
+    (logits (B, 1, V), cache), the cache updated in place.
+    """
+    return _decode_step_impl(params, cfg, cache, tokens, active)
+
+
+# ---------------------------------------------------------------------------
 # Block-paged slot decode (serving)
 # ---------------------------------------------------------------------------
 def init_slot_cache_paged(cfg: ModelConfig, n_slots: int, max_seq: int, *,
@@ -282,25 +403,11 @@ def init_slot_cache_paged(cfg: ModelConfig, n_slots: int, max_seq: int, *,
                                         dtype=torch.int32, device=device)}
 
 
-def reset_slot_state(cfg: ModelConfig, cache: Dict[str, Any],
-                     slot: int) -> Dict[str, Any]:
-    """Clear one slot's per-request state before binding a new request: its
-    position.  KV pages need no clearing (position masks hide stale
-    entries); block tables survive.  In place; returns the cache."""
-    cache["pos"][slot] = 0
-    return cache
-
-
 def _paged_attn_block(p: Params, x: torch.Tensor, layer: Dict[str, Any],
                       cfg: ModelConfig, pos: torch.Tensor,
                       block_tables: torch.Tensor, active: torch.Tensor,
                       max_seq: int) -> torch.Tensor:
-    h_in = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = _project_qkv(p["attn"], h_in, cfg)
-    posq = pos[:, None, None]
-    q = apply_rope(q, posq, cfg.rope_theta)
-    k = apply_rope(k, posq, cfg.rope_theta)
-
+    q, k, v = _qkv_at(p, x, cfg, pos)
     k_arena, v_arena = layer["k"], layer["v"]
     b = x.shape[0]
     bs = k_arena.shape[-2]
@@ -317,8 +424,7 @@ def _paged_attn_block(p: Params, x: torch.Tensor, layer: Dict[str, Any],
     out = attn_lib.paged_decode_attention(
         q, k_arena, v_arena, block_tables, pos, max_seq=max_seq,
         impl=cfg.paged_attention_impl)
-    x = x + _merge_heads(out, p["attn"], cfg)
-    return _mlp(p, x, cfg)
+    return _finish_block(p, x, out, cfg)
 
 
 def decode_step_slots_paged(params: Params, cfg: ModelConfig,
@@ -331,7 +437,8 @@ def decode_step_slots_paged(params: Params, cfg: ModelConfig,
     ``cache["block_tables"]`` (B, NB) int32.  Each active slot's new K/V is
     written into its page at ``pos`` and its position advances by one; an
     inactive slot writes to the trash page and keeps its position and live
-    pages.  Returns (logits (B, 1, V), cache), the cache updated in place.
+    pages.  Returns (logits (B, 1, V), cache), the cache updated in place
+    (``pos`` too: a CUDA graph of the step reads the same buffer).
     """
     pos = cache["pos"]
     block_tables = cache["block_tables"]
@@ -340,5 +447,5 @@ def decode_step_slots_paged(params: Params, cfg: ModelConfig,
         x = _paged_attn_block(p, x, layer, cfg, pos, block_tables, active,
                               max_seq)
     logits = _logits(params, x, cfg)
-    cache["pos"] = torch.where(active, pos + 1, pos)
+    pos.copy_(torch.where(active, pos + 1, pos))
     return logits, cache

@@ -1,4 +1,5 @@
-"""Serving observability: the tracer and the metrics registry.
+"""Serving observability: the tracer, the metrics registry, their Chrome
+trace-event and JSON exports, and SLO attainment.
 
 One :class:`Observability` bundle travels through the serving stack (driver,
 engine loop, pool) so every layer instruments against the same tracer and
@@ -8,19 +9,25 @@ guards on ``tracer.enabled``) and a live-but-unexported
 :class:`~repro_torch.obs.metrics.MetricsRegistry`.
 
 The JAX package's bundle also carries telemetry feedback and a performance
-watchdog (both off by default there); they, the latency curves and the
-Perfetto exporter are not ported yet.
+watchdog (both off by default there); they and the latency curves are not
+ported yet.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+from .export import chrome_trace, trace_health, write_metrics, write_trace
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry
 from .trace import NullTracer, TraceEvent, Tracer, default_clock
+from .watchdog import (class_boundaries, format_slo_report, request_class,
+                       slo_attainment)
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "NullTracer",
-    "Observability", "TraceEvent", "Tracer", "default_clock",
+    "Observability", "TraceEvent", "Tracer", "chrome_trace",
+    "class_boundaries", "default_clock", "format_slo_report",
+    "request_class", "slo_attainment", "trace_health", "write_metrics",
+    "write_trace",
 ]
 
 

@@ -1,7 +1,8 @@
-"""Continuous-batching engine loop on the block-paged KV cache.
+"""Continuous-batching engine loop on the dense or block-paged KV cache.
 
-One step (`decode_step_slots_paged`) advances every active slot by one token
-per iteration — prefilling slots consume their next prompt token, decoding
+One step (`decode_step_slots` dense, `decode_step_slots_paged` paged: the
+same contract, the same tokens) advances every active slot by one token per
+iteration — prefilling slots consume their next prompt token, decoding
 slots consume their previously sampled token — so prefill interleaves with
 the running decode batch, and a finished request's slot is refilled at the
 next completion boundary.
@@ -12,9 +13,11 @@ previous argmax, and scatters sampled tokens into a per-slot output buffer.
 The host never syncs per step: completion is deterministic in step count
 (greedy decoding, known lengths), so the loop dispatches a *burst* of steps
 up to the next completion boundary and only then pulls the finished slots'
-rows.  The JAX package scans a burst inside one jitted call; here a burst is
-a plain loop of eager steps whose kernels queue on the card's stream (CUDA
-graphs are later work).
+rows.  The JAX package scans a burst inside one jitted call.  Here, on a
+card, :meth:`SlotEngine.warmup` captures one fused step into a CUDA graph
+over the engine's static buffers, and a burst of k steps replays it k times:
+one launch per step instead of the ~2,600 kernels an eager step issues.  On
+the CPU the same step runs eagerly.
 
 :class:`SlotEngine` holds the slot state and the burst machinery;
 :class:`EngineLoop` composes one SlotEngine with a pool and a batcher and
@@ -24,11 +27,13 @@ reproducibly.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
+from ..kernels.ops import WRAPPERS
 from ..models import transformer as T
 from ..obs import Observability, default_clock
 from .batcher import ContinuousBatcher
@@ -110,42 +115,70 @@ def trace_completion(tracer, req) -> None:
 class SlotEngine:
     """Device-resident slot state + the burst machinery for one engine.
 
-    Owns the paged slot cache, the prompt/output buffers and the per-slot
-    step schedule.  Params are cast to the compute dtype once, on
-    ``device``, and every buffer lives there.
+    Owns the slot cache (``kv_layout`` "dense" or "paged"), the
+    prompt/output buffers and the per-slot step schedule.  Params are cast
+    to the compute dtype once, on ``device``, and every buffer lives there.
 
-    Invariants: the pool's lease order IS the block table — :meth:`bind`
-    uploads ``KVPool.block_table`` verbatim.  The engine writes KV only at
-    each slot's current position, so pages behind ``pos`` are immutable
-    (what makes published prefix pages safe to share), and pending COW
-    copies are materialized in :meth:`bind` before the slot's first write.
-    :meth:`dispatch` reads the caller's ``active`` mask once, copying it to
-    the device before it returns, so the caller may change its array right
-    after; :meth:`sync` is a pure wait.
+    Every buffer the step reads or writes is allocated once and updated in
+    place (:meth:`_step`, :meth:`bind`, :meth:`copy_page`, the mask upload
+    in :meth:`dispatch`), so the CUDA graph :meth:`warmup` captures on a
+    card stays valid for the engine's life.  ``cuda_graph=False`` runs the
+    same step eagerly on the card; on the CPU it always runs eagerly.
+
+    Invariants: under the paged layout the pool's lease order IS the block
+    table — :meth:`bind` uploads ``KVPool.block_table`` verbatim.  The
+    engine writes KV only at each slot's current position, so pages behind
+    ``pos`` are immutable (what makes published prefix pages safe to
+    share), and pending COW copies are materialized in :meth:`bind` before
+    the slot's first write.  :meth:`dispatch` reads the caller's ``active``
+    mask once, copying it to the device before it returns, so the caller may
+    change its array right after; :meth:`sync` is a pure wait.
     """
 
+    # eager all-inactive steps before the capture: they meet first-use costs
+    # (the kernel library's load, cuBLAS's workspace) outside the graph, and
+    # launch their kernels on the card like any step
+    WARMUP_STEPS = 1
+
     def __init__(self, cfg: T.ModelConfig, params, pool: KVPool, *,
-                 name: str = "engine", device="cuda"):
+                 kv_layout: str = "dense", name: str = "engine",
+                 device="cuda", cuda_graph: bool = True):
+        if kv_layout not in ("dense", "paged"):
+            raise ValueError(f"unknown kv_layout {kv_layout!r}")
         self.cfg = cfg
         self.device = torch.device(device)
         self.params = T.compute_params(
             T.map_params(lambda _, t: t.to(self.device), params), cfg)
         self.pool = pool
+        self.kv_layout = kv_layout
         self.name = name                 # labels this engine's trace track
         n_slots = pool.n_slots
-        self.cache = T.init_slot_cache_paged(
-            cfg, n_slots, pool.max_seq, block_size=pool.block_size,
-            total_blocks=pool.total_blocks, device=self.device)
+        if kv_layout == "paged":
+            self.cache = T.init_slot_cache_paged(
+                cfg, n_slots, pool.max_seq, block_size=pool.block_size,
+                total_blocks=pool.total_blocks, device=self.device)
+            self._step_fn = functools.partial(T.decode_step_slots_paged,
+                                              max_seq=pool.max_seq)
+        else:
+            self.cache = T.init_slot_cache(cfg, n_slots, pool.max_seq,
+                                           device=self.device)
+            self._step_fn = T.decode_step_slots
         self.max_prompt = pool.max_seq
         self.max_gen = pool.max_seq
 
-        def zeros(*shape):
-            return torch.zeros(shape, dtype=torch.int32, device=self.device)
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
 
         self._prompts = zeros(n_slots, self.max_prompt)
         self._plens = zeros(n_slots)
         self._last_tok = zeros(n_slots)
         self._out_buf = zeros(n_slots, self.max_gen)
+        self._active = zeros(n_slots, dtype=torch.bool)
+        self._rows = torch.arange(n_slots, device=self.device)
+        self.logits = None               # (B, 1, V) of the latest step
+        self.cuda_graph = cuda_graph and self.device.type == "cuda"
+        self._graph = None
+        self._graph_launches = []        # (wrapper, launches per replay)
         self.slots: List[Optional[Request]] = [None] * n_slots
         # host-side schedule state: active steps done / total per slot, plus
         # the dispatch mask (bind sets, release clears)
@@ -161,6 +194,8 @@ class SlotEngine:
         """Copy-on-write: duplicate one physical KV page (every layer's K
         and V arena) so a writer diverging inside a shared tail page gets a
         private copy before its first write."""
+        if self.kv_layout != "paged":
+            raise ValueError("copy_page needs the paged KV layout")
         for layer in self.cache["layers"]:
             layer["k"][dst] = layer["k"][src]
             layer["v"][dst] = layer["v"][src]
@@ -168,24 +203,28 @@ class SlotEngine:
     def bind(self, req: Request, *, steps_total: int,
              start_pos: int = 0) -> None:
         """Upload the request's prompt into its slot, materialize pending
-        COW copies, upload its block table and reset its position.
+        COW copies, upload its block table (paged) and reset its position.
         ``steps_total`` is the number of engine steps the request runs
         (plen + gen - 1, minus any prefix-shared tokens).  ``start_pos`` > 0
-        binds at an offset (prefix sharing): positions ``[0, start_pos)``
-        are served by shared pages, so the first fed token is
-        ``prompt[start_pos]``."""
+        binds at an offset (prefix sharing, paged layout only): positions
+        ``[0, start_pos)`` are served by shared pages, so the first fed
+        token is ``prompt[start_pos]``."""
+        if start_pos and self.kv_layout != "paged":
+            raise ValueError("bind at an offset (prefix sharing) requires "
+                             "the paged KV layout")
         s = req.slot
         row = torch.zeros((self.max_prompt,), dtype=torch.int32)
         row[:req.prompt_len] = torch.from_numpy(
             np.asarray(req.prompt, np.int32))
         self._prompts[s] = row.to(self.device)
         self._plens[s] = req.prompt_len
-        for src, dst in self.pool.consume_cow(req.rid):
-            self.copy_page(src, dst)
-        table = self.pool.block_table(
-            req.rid, pad_to=self.cache["block_tables"].shape[1])
-        self.cache["block_tables"][s] = torch.from_numpy(table).to(
-            self.device)
+        if self.kv_layout == "paged":
+            for src, dst in self.pool.consume_cow(req.rid):
+                self.copy_page(src, dst)
+            table = self.pool.block_table(
+                req.rid, pad_to=self.cache["block_tables"].shape[1])
+            self.cache["block_tables"][s] = torch.from_numpy(table).to(
+                self.device)
         T.reset_slot_state(self.cfg, self.cache, s)
         self.cache["pos"][s] = start_pos
         self.slots[s] = req
@@ -193,36 +232,76 @@ class SlotEngine:
         self.steps_total[s] = steps_total
         self.active[s] = True
 
-    def _step(self, active: torch.Tensor) -> None:
-        """Device-side feed + step + sample + output scatter."""
-        cache = self.cache
-        b = self._prompts.shape[0]
-        rows = torch.arange(b, device=self.device)
+    def _step(self) -> None:
+        """Device-side feed + step + sample + output scatter over the slots
+        the ``_active`` buffer marks, every write in place (the unit the
+        CUDA graph captures)."""
+        cache, active, rows = self.cache, self._active, self._rows
         pos = cache["pos"]
         prompt_tok = self._prompts[
             rows, torch.clamp(pos, max=self.max_prompt - 1).long()]
         tok = torch.where(pos < self._plens, prompt_tok, self._last_tok)
-        logits, self.cache = T.decode_step_slots_paged(
-            self.params, self.cfg, cache, tok[:, None], active,
-            max_seq=self.pool.max_seq)
-        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-        # the sample is output index (pos - plen + 1); valid once the final
-        # prompt token has been fed
+        # the sample is output index (pos - plen + 1), taken before the step
+        # advances pos in place; valid once the final prompt token is fed
         idx = pos - self._plens + 1
+        logits, _ = self._step_fn(self.params, self.cfg, cache, tok[:, None],
+                                  active)
+        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         write = active & (idx >= 0) & (idx < self.max_gen)
         safe = torch.clamp(idx, 0, self.max_gen - 1).long()
         self._out_buf[rows, safe] = torch.where(
             write, nxt, self._out_buf[rows, safe])
-        self._last_tok = torch.where(active, nxt, self._last_tok)
+        self._last_tok.copy_(torch.where(active, nxt, self._last_tok))
+        self.logits = logits
+
+    def warmup(self) -> None:
+        """On a card (unless ``cuda_graph=False``), capture one step into
+        the CUDA graph :meth:`dispatch` replays, after WARMUP_STEPS eager
+        steps on the capture stream.  Every step here runs with an
+        all-inactive mask, which leaves positions, live KV and the token
+        buffers as they were (the paged layout writes only its trash page),
+        so this is state-neutral.  A capture that fails raises.  Nothing to
+        prepare when the steps run eagerly."""
+        if not self.cuda_graph or self._graph is not None:
+            return
+        self._active.zero_()
+        current = torch.cuda.current_stream(self.device)
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(current)
+        with torch.no_grad():
+            with torch.cuda.stream(stream):
+                for _ in range(self.WARMUP_STEPS):
+                    self._step()
+            current.wait_stream(stream)
+            before = [fn.launches for fn in WRAPPERS]
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=stream):
+                self._step()
+        # capture records the kernels' launches without running them: the
+        # counts move to the replays
+        self._graph_launches = [(fn, fn.launches - n)
+                                for fn, n in zip(WRAPPERS, before)]
+        for fn, n in zip(WRAPPERS, before):
+            fn.launches = n
+        self._graph = graph
 
     def dispatch(self, burst: int, active_np: np.ndarray) -> None:
         """Queue ``burst`` steps over the slots ``active_np`` marks, without
-        a host sync.  The mask is copied to the device here, so changing
+        a host sync: graph replays on a card, eager steps otherwise.  The
+        mask is copied into the engine's device buffer here, so changing
         ``active_np`` after this returns cannot reach the queued steps."""
-        active = torch.tensor(active_np, dtype=torch.bool, device=self.device)
-        with torch.no_grad():
+        if self.cuda_graph and self._graph is None:
+            self.warmup()
+        self._active.copy_(torch.from_numpy(np.array(active_np, bool)))
+        if self._graph is not None:
             for _ in range(burst):
-                self._step(active)
+                self._graph.replay()
+            for fn, n in self._graph_launches:
+                fn.launches += n * burst
+        else:
+            with torch.no_grad():
+                for _ in range(burst):
+                    self._step()
         self.steps_done[active_np] += burst
         for s, req in enumerate(self.slots):
             if req is not None and active_np[s]:
@@ -256,24 +335,30 @@ class EngineLoop:
     The open-loop scaffolding lives in :class:`~repro_torch.serving.driver.
     OpenLoopDriver`; this class provides the hook implementations
     (admission binds the request onto the engine, completion pulls the
-    whole output row).  ``device`` defaults to the card.
+    whole output row).  ``device`` defaults to the card, where the steps
+    replay a CUDA graph unless ``cuda_graph=False``.
     """
 
     def __init__(self, cfg: T.ModelConfig, params, *, n_slots: int,
                  max_seq: int, block_size: int = 16,
                  total_blocks: Optional[int] = None,
+                 kv_layout: str = "paged",
                  device_name: str = "nvidia-h100",
                  device_model=None,
                  step_slo_s: Optional[float] = None,
                  token_budget: Optional[int] = None,
                  prefix_sharing: bool = False,
                  obs: Optional[Observability] = None,
-                 device="cuda"):
+                 device="cuda", cuda_graph: bool = True):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("EngineLoop: no CUDA device is available; "
                                "pass device='cpu' to run on the CPU")
+        if prefix_sharing and kv_layout != "paged":
+            raise ValueError("prefix sharing maps physical pages — it "
+                             "requires kv_layout='paged'")
         self.cfg = cfg
+        self.kv_layout = kv_layout
         self.prefix_sharing = prefix_sharing
         self.obs = obs if obs is not None else Observability()
         self.pool = KVPool(n_slots, max_seq, block_size=block_size,
@@ -283,9 +368,13 @@ class EngineLoop:
             cfg, self.pool, device_name=device_name,
             device_model=device_model, step_slo_s=step_slo_s,
             token_budget=token_budget)
-        self.engine = SlotEngine(cfg, params, self.pool, name="colocated",
-                                 device=device)
+        self.engine = SlotEngine(cfg, params, self.pool, kv_layout=kv_layout,
+                                 name="colocated", device=device,
+                                 cuda_graph=cuda_graph)
         wire_pool_events(self.pool, self.obs.tracer)
+
+    def warmup(self) -> None:
+        self.engine.warmup()
 
     @property
     def n_active(self) -> int:

@@ -48,7 +48,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                  "configs.qwen2_1_5b", "serving.engine_loop",
                  "serving.driver", "serving.kv_pool", "obs.trace",
                  "profiling.cache", "profiling.bench", "profiling.calibrate",
-                 "profiling.pricer", "launch.profile"):
+                 "profiling.pricer", "launch.profile", "launch.serve",
+                 "serving.api", "configs.registry", "obs.export",
+                 "obs.watchdog"):
         assert f"repro_torch.{name}" in modules
     benches = sorted(p.stem for p in (REPO / "benchmarks").glob(
         "bench_torch_*.py"))

@@ -324,7 +324,8 @@ def test_shared_vs_unshared_identical_and_equal_to_reference(weights, split):
     for name, Engine, Pool, params in (
             ("port", SlotEngine, KVPool, weights[1]),
             ("reference", JEngine, JPool, weights[0])):
-        kw = {"device": "cpu"} if name == "port" else {"kv_layout": "paged"}
+        kw = ({"device": "cpu", "kv_layout": "paged"} if name == "port"
+              else {"kv_layout": "paged"})
         for sharing in (False, True):
             pool = Pool(n_slots=2, max_seq=MAX_LEN, block_size=BS,
                         prefix_sharing=sharing)
@@ -349,7 +350,8 @@ def test_dispatch_copies_the_active_mask(weights):
 
     def run(mutate):
         pool = KVPool(n_slots=2, max_seq=MAX_LEN, block_size=BS)
-        eng = SlotEngine(PCFG, weights[1], pool, device="cpu")
+        eng = SlotEngine(PCFG, weights[1], pool, kv_layout="paged",
+                         device="cpu")
         req = Request(rid=0, prompt=prompt, max_new_tokens=6)
         req.slot = pool.alloc(0, req.total_tokens)
         eng.bind(req, steps_total=req.prompt_len + 5)
