@@ -110,9 +110,28 @@ Phases, each of which raises (and so exits nonzero) on a failed check:
              pass benchmarks/check_regression.py's validate_trace.  Prints
              tok/s and TTFT p50 of the graph, eager, dense and static runs,
              in turns, median of three.
+9. placement — serve() with phase placement on the same model and
+             workload: --placement disagg on the torch engine for both
+             phases with --prefill-slots equal to --slots (a prefill and a
+             decode slot engine, each replaying its own graph around the
+             paged kernel), with the asynchronous hand-off and with
+             --sync-handoff.  Both must give the colocated run's tokens bit
+             for bit; the counted run must hand off every request, move
+             exactly the bytes of its snapshots, and launch the paged
+             kernel (prefill steps + decode steps + 2 warm-up steps) x 28
+             times and nothing else.  --device-assignment auto (one card:
+             shared, the hand-off copied on a side stream) with
+             --measure-link-bw must keep the tokens and record the
+             same-card copy rate; --placement auto prints its decision and
+             keeps the tokens; a --trace of a disagg run must pass
+             validate_trace with its hand-off spans.  Prints the hand-off's
+             bytes, stall_s and overlap_s, whether 2 prefill slots against
+             8 keep the tokens (not gated), and tok/s and TTFT p50 of
+             colocated, disagg-async and disagg-sync, in turns, median of
+             three, each beside the card's name and power limit.
 
-Every main-path phase (4, 4b, 6, 7, 8) sets every kernel's launch count to 0
-just before it and reads them all just after (4b's count covers its
+Every main-path phase (4, 4b, 6, 7, 8, 9) sets every kernel's launch count
+to 0 just before it and reads them all just after (4b's count covers its
 profile and its plan's run).  The last line is {"ok": true,
 "device": {...}}; the line before it holds the card's name and power limit,
 and the one before that the per-kernel JSON.  For the AlexNet kernels its
@@ -1414,6 +1433,147 @@ def phase_serve_entry(torch, kern, cfg, params):
     return launches
 
 
+def phase_placement(torch, kern, cfg, smi: str):
+    """serve() with phase placement: the disaggregated loop (prefill and
+    decode slot engines, each replaying its own graph around the paged
+    kernel) against the colocated one, bitwise at equal slot counts, with
+    the asynchronous and the synchronous hand-off; the hand-off's bytes
+    against its snapshots'; launches counted through both engines'
+    replays; the trace; auto placement, the device assignment and the
+    measured copy rate; tok/s and TTFT p50 in turns."""
+    sys.path.insert(0, str(ROOT))
+    from benchmarks.check_regression import validate_trace
+    from repro_torch.profiling import ProfileCache, cached_link_bw
+    from repro_torch.serving import SlotEngine, api
+
+    n_req = SERVE_ENTRY["requests"]
+    link_cache = ROOT / "build" / "link_cache.json"
+    trace = ROOT / "build" / "placement_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    link_cache.unlink(missing_ok=True)
+    disagg = dict(placement="disagg", prefill_engine="torch",
+                  decode_engine="torch", prefill_slots=SLOTS)
+    runs = {"colocated": {}, "disagg-async": disagg,
+            "disagg-sync": dict(disagg, sync_handoff=True)}
+
+    def run(name, **fields):
+        report = api.serve(serve_options(api, **dict(runs.get(name, {}),
+                                                     **fields)))
+        torch.cuda.synchronize()
+        check(sum(len(r.output) == r.max_new_tokens for r in report.requests)
+              == len(report.requests) == fields.get("requests", n_req),
+              f"{name}: not every request finished")
+        return report
+
+    t0 = time.perf_counter()
+    run("disagg-async", requests=1, gen_len=2)      # first-call costs
+    print(f"[placement] first call in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    colocated = run("colocated")
+
+    # the counted run, recording each exported snapshot's bytes
+    export, sizes = SlotEngine.export_slot, []
+
+    def export_slot(self, s):
+        state = export(self, s)
+        sizes.append(SlotEngine.state_nbytes(state))
+        return state
+
+    SlotEngine.export_slot = export_slot
+    try:
+        for fn in kern.values():
+            fn.launches = 0
+        counted = run("disagg-async")
+        launches = {name: fn.launches for name, fn in kern.items()}
+    finally:
+        SlotEngine.export_slot = export
+    steps = counted.summary["steps"]
+    want = (steps + 2 * SlotEngine.WARMUP_STEPS) * cfg.n_layers
+    hand = counted.handoff
+    print(f"[placement] disagg-async requests_done="
+          f"{counted.summary['requests_done']} steps={steps} (prefill + "
+          f"decode engine) launches={launches} (expected paged_attention x "
+          f"(steps + 2 x {SlotEngine.WARMUP_STEPS} warm-up) x "
+          f"{cfg.n_layers} = {want})", flush=True)
+    check(launches["paged_attention"] == want
+          and sum(launches.values()) == want,
+          f"placement launches {launches}, expected paged_attention x "
+          f"{want} and nothing else")
+    check(hand["n_handoffs"] == n_req,
+          f"{hand['n_handoffs']} hand-offs for {n_req} requests")
+    check(hand["bytes_moved"] == sum(sizes) and len(sizes) == n_req,
+          f"hand-off bytes {hand['bytes_moved']} against the snapshots' "
+          f"{sum(sizes)} ({len(sizes)} snapshots)")
+    same = counted.outputs == colocated.outputs
+    print(f"[placement] disagg-async tokens bitwise equal to colocated: "
+          f"{same}", flush=True)
+    check(same, "disagg-async tokens differ from the colocated run's")
+    sync = run("disagg-sync")
+    same = sync.outputs == colocated.outputs
+    print(f"[placement] disagg-sync tokens bitwise equal to colocated: "
+          f"{same}", flush=True)
+    check(same, "disagg-sync tokens differ from the colocated run's")
+    for name, rep in (("disagg-async", counted), ("disagg-sync", sync)):
+        h = rep.handoff
+        print(f"[placement] {name} hand-off: {h['n_handoffs']} x "
+              f"{h['bytes_moved'] / h['n_handoffs']:.0f} B (per hand-off, "
+              f"mean), stall_s={h['stall_s']:.6f} overlap_s="
+              f"{h['overlap_s']:.6f} ({smi})", flush=True)
+
+    # the side-stream copy of a device assignment (one card: shared), and
+    # the measured same-card copy rate
+    assigned = run("disagg-async", device_assignment="auto",
+                   measure_link_bw=str(link_cache))
+    same = assigned.outputs == colocated.outputs
+    bw = cached_link_bw(ProfileCache.load(str(link_cache)))
+    print(f"[placement] --device-assignment auto (shared card) tokens "
+          f"bitwise equal to colocated: {same}; stall_s="
+          f"{assigned.handoff['stall_s']:.6f}; measured same-card copy "
+          f"rate {bw / 1e9:.2f} GB/s ({smi})", flush=True)
+    check(same, "the assigned (side-stream) hand-off changed the tokens")
+    check(bw is not None and bw > 0, "no link measurement was recorded")
+
+    auto = run("auto", placement="auto")
+    print(f"[placement] --placement auto ({auto.placement['prefill_engine']}"
+          f" / {auto.placement['decode_engine']}):\n"
+          f"{auto.placement['summary']}", flush=True)
+    check(auto.outputs == colocated.outputs,
+          "auto placement changed the tokens")
+
+    traced = run("disagg-async", trace=str(trace))
+    checks = validate_trace(str(trace), require_handoff=True)
+    print(f"[placement] trace: "
+          f"{len(json.loads(trace.read_text())['traceEvents'])} events; "
+          + "; ".join(f"{c}={ok}" for c, ok, _ in checks), flush=True)
+    check(all(ok for _, ok, _ in checks), f"trace checks {checks}")
+    check(traced.outputs == colocated.outputs, "the traced run differs")
+
+    # a GEMM over 2 rows may take another route than over 8: reported only
+    unequal = run("disagg-async", prefill_slots=2)
+    agree = np.mean([np.mean(np.asarray(unequal.outputs[rid])
+                             == np.asarray(toks))
+                     for rid, toks in colocated.outputs.items()])
+    print(f"[placement] unequal pair (2 prefill slots, {SLOTS} decode): "
+          f"tokens bitwise equal to colocated: "
+          f"{unequal.outputs == colocated.outputs} ({agree:.4f} of tokens; "
+          f"reported, not gated)", flush=True)
+
+    # tok/s and TTFT p50 of each path, in turns, median of three
+    rows = {name: [] for name in runs}
+    for _ in range(3):
+        for name in runs:
+            rep = run(name)
+            rows[name].append((rep.summary["tok_per_s"],
+                               rep.summary["ttft_p50_s"]))
+    for name, vals in rows.items():
+        print(f"[placement] {name}: tok/s="
+              f"{statistics.median(v[0] for v in vals):.1f} (runs "
+              f"{', '.join(f'{v[0]:.1f}' for v in vals)}) ttft_p50_s="
+              f"{statistics.median(v[1] for v in vals):.4f} ({smi})",
+              flush=True)
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -1471,7 +1631,8 @@ def main() -> None:
     # 5. the attention kernels against their plain versions
     lm = phase_lm_kernels(torch, F, ref, kern)
 
-    # 6-8. qwen2-1.5B at full width: prefill, serving, the serve entry
+    # 6-9. qwen2-1.5B at full width: prefill, serving, the serve entry,
+    # phase placement
     t0 = time.perf_counter()
     params = T.compute_params(T.init_params(QWEN2, seed=0), QWEN2)
     torch.cuda.synchronize()
@@ -1480,9 +1641,13 @@ def main() -> None:
     prefill_launches = phase_prefill(torch, kern, QWEN2, params)
     serve_launches, _, _ = phase_serve(torch, kern, QWEN2, params)
     entry_launches = phase_serve_entry(torch, kern, QWEN2, params)
+    del params
+    # 9. phase placement and disaggregated serving through the entry point
+    placement_launches = phase_placement(torch, kern, QWEN2, smi)
     by_phase = {"alexnet": launches, "measured": measured_launches,
                 "prefill": prefill_launches, "serve": serve_launches,
-                "serve_entry": entry_launches}
+                "serve_entry": entry_launches,
+                "placement": placement_launches}
     home = {"flash_attention": "prefill", "paged_attention": "serve_entry"}
 
     rows = []

@@ -17,9 +17,12 @@ a CUDA graph.  ``--kv-layout dense`` keeps physically max_seq-long slot rows
 (the same tokens as paged); ``--static-batching`` steps whole batches
 through the dense decode step.  ``--trace``, ``--metrics-out`` and
 ``--slo-report`` write the Chrome trace, the metrics snapshot and the SLO
-table.  Flags whose modules are not ported yet (placement and
-disaggregation, speculation, the watchdog and telemetry feedback, the
-production meshes) exit with the ROADMAP item that ports them.
+table.  ``--placement disagg`` serves on a prefill and a decode slot engine
+(each its own CUDA graph on a card) with an exact slot hand-off,
+``--placement auto`` lets the phase-placement analyzer pick the engines.
+Flags whose modules are not ported yet (speculation, the watchdog and
+telemetry feedback, the production meshes) exit with the ROADMAP item that
+ports them.
 """
 from __future__ import annotations
 
@@ -110,8 +113,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--placement", default="colocated",
                     choices=["colocated", "disagg", "auto"],
                     help="auto: price prefill/decode separately over the "
-                         "placement engine set (not ported yet) "
-                         "and run the winning pair; disagg: force the "
+                         "placement engine set and run the winning pair; "
+                         "disagg: force the "
                          "disaggregated loop on --prefill-engine/"
                          "--decode-engine")
     ap.add_argument("--placement-objective", default="latency",
@@ -130,8 +133,8 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["single", "auto"],
                     help="disaggregated path: auto pins the prefill and "
                          "decode engines onto distinct devices when >= 2 "
-                         "are visible (not ported yet); single keeps "
-                         "everything on one device")
+                         "are visible; single keeps everything on one "
+                         "device")
     ap.add_argument("--sync-handoff", action="store_true",
                     help="disaggregated path: adopt each phase hand-off "
                          "immediately after dispatch instead of letting "
@@ -150,8 +153,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "of a representative page batch between the two "
                          "phase devices at startup, record it in the "
                          "profile cache for measured placement, and "
-                         "price this run's hand-offs with it (not ported "
-                         "yet)")
+                         "price this run's hand-offs with it")
     ap.add_argument("--persist-curves", default=None, metavar="PATH",
                     help="continuous path: prime admission pricing from "
                          "the latency(batch) curve a previous run fed "

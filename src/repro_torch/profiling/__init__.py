@@ -12,7 +12,10 @@ behaviour; this package is that measurement layer for the port:
   ``CalibratedDeviceModel`` that drops into ``core/cost_model.py``, and
   reports prediction error before/after;
 * ``pricer``    — ``MeasuredPricer``, the measure-on-miss pricing source
-  behind ``core.scheduler.schedule(..., price="measured")``.
+  behind ``core.scheduler.schedule(..., price="measured")``;
+* ``transfer``  — the measured inter-device copy rate that prices the
+  disaggregated hand-off (``measure_link_bandwidth``, ``record_link_bw``,
+  ``cached_link_bw``).
 
 CLI: ``python -m repro_torch.launch.profile`` (measure + calibrate +
 compare plans); benchmark: ``python -m benchmarks.bench_torch_profiling``.
@@ -24,11 +27,15 @@ from .calibrate import (CalibratedDeviceModel, CalibrationReport,
                         LayerPrediction, analytic_predicted_time,
                         calibrate_engine, calibration_report, fit_kind_rates)
 from .pricer import MeasuredPricer
+from .transfer import (LINK_ENGINE, LINK_SOURCE, LinkSpec, cached_link_bw,
+                       measure_link_bandwidth, record_link_bw)
 
 __all__ = [
     "CalibratedDeviceModel", "CalibrationReport", "DEFAULT_CACHE_PATH",
-    "LayerPrediction", "Measurement", "MeasuredPricer", "ProfileCache",
-    "analytic_predicted_time", "calibrate_engine", "calibration_report",
-    "entry_key", "environment", "fingerprint", "fit_kind_rates",
-    "make_input", "profile_network", "time_layer", "validate_dict",
+    "LINK_ENGINE", "LINK_SOURCE", "LayerPrediction", "LinkSpec",
+    "Measurement", "MeasuredPricer", "ProfileCache",
+    "analytic_predicted_time", "cached_link_bw", "calibrate_engine",
+    "calibration_report", "entry_key", "environment", "fingerprint",
+    "fit_kind_rates", "make_input", "measure_link_bandwidth",
+    "profile_network", "record_link_bw", "time_layer", "validate_dict",
 ]

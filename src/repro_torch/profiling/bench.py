@@ -29,8 +29,9 @@ import numpy as np
 import torch
 
 from ..core.engines import ExecutionEngine, init_layer_params
-from ..core.layer_model import (ConvSpec, FCSpec, LayerSpec, NetworkSpec,
-                                NormSpec, PoolSpec)
+from ..core.layer_model import (AttentionSpec, ConvSpec, FCSpec, LayerSpec,
+                                MLPSpec, MoESpec, NetworkSpec, NormSpec,
+                                PoolSpec, SSMSpec)
 from . import cache as cache_lib
 
 
@@ -90,6 +91,10 @@ def make_input(spec: LayerSpec, batch: int = 1, dtype=torch.float32, *,
         shape = (batch, h, w, c)
     elif isinstance(spec, FCSpec):
         shape = (batch,) + tuple(spec.m_i)
+    elif isinstance(spec, (AttentionSpec, MLPSpec, MoESpec, SSMSpec)):
+        # the decode-step / prefill kinds serving admission prices: a
+        # (batch, seq, d_model) activation (seq=1 for decode-step specs)
+        shape = (batch, spec.seq, spec.d_model)
     else:
         raise NotImplementedError(
             f"no input synthesizer for {type(spec).__name__}")

@@ -175,11 +175,15 @@ class ProfileCache:
                                _env_of(m))] = m
 
     def measurements(self, *, engine: Optional[str] = None,
+                     source: Optional[str] = None,
                      stale: bool = False) -> List[dict]:
-        """Entries for this device's environment (all when ``stale``)."""
+        """Entries for this device's environment (all when ``stale``),
+        optionally only those of one ``engine`` or provenance ``source``."""
         out = []
         for m in self.entries.values():
             if engine is not None and m["engine"] != engine:
+                continue
+            if source is not None and m.get("source") != source:
                 continue
             if not stale and _env_of(m) != self.env:
                 continue

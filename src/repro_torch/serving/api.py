@@ -23,11 +23,20 @@ the card the paged layout's decode attention is the hand-written kernel
 plain versions run eagerly.  The dense layout's attention and the static
 server are plain PyTorch ops, as they are XLA ops in the JAX package.
 
+Phase placement and disaggregation run as in the JAX package:
+``--placement auto`` prices the two serving phases over the placement
+engines and runs the winning pair, ``--placement disagg`` (or an engine
+flag) runs the disaggregated loop, whose prefill and decode slot engines
+each replay their own CUDA graph on a card and hand each request's slot
+over exactly; ``--device-assignment auto`` places the phases on distinct
+cards where two are visible, ``--measure-link-bw`` measures the copy rate
+between them into the profile cache.
+
 Options whose modules are not ported yet pass ``validate()`` as they do in
 the JAX package and then raise ``NotImplementedError`` in ``serve``, naming
-the ROADMAP item that ports them: phase placement and disaggregation (§1
-item 4), speculative decoding (item 5), the watchdog and telemetry feedback
-(item 6) and the production meshes (item 9).
+the ROADMAP item that ports them: speculative decoding (§1 item 5), the
+watchdog and telemetry feedback (item 6) and the production meshes (item
+9).
 """
 from __future__ import annotations
 
@@ -39,9 +48,13 @@ import numpy as np
 import torch
 
 from ..configs import registry
+from ..core.engines import ENGINES_BY_NAME
+from ..launch.mesh import device_assignment
 from ..models import transformer as T
 from ..obs import (Observability, Tracer, default_clock, format_slo_report,
                    slo_attainment, write_metrics, write_trace)
+from . import placement as placement_lib
+from .disagg import DisaggregatedEngineLoop
 from .engine_loop import EngineLoop
 from .request import prefix_shared_workload, synthetic_workload
 
@@ -278,15 +291,9 @@ class ServeOptions:
 def refuse_unported(options: ServeOptions) -> None:
     """Raise NotImplementedError for a valid option whose module the port
     does not have yet, naming the ROADMAP §1 item that ports it."""
-    e, pl = options.engine, options.placement
+    e = options.engine
     o, s = options.observability, options.speculative
     unported = (
-        (options.disagg_requested,
-         "--placement disagg/auto and --prefill-engine/--decode-engine",
-         "item 4 (placement and disaggregation)"),
-        (pl.device_assignment != "single" or pl.measure_link_bw,
-         "--device-assignment auto and --measure-link-bw",
-         "item 4 (placement and disaggregation)"),
         (e.mesh != "host", f"--mesh {e.mesh}", "item 9 (sharding)"),
         (s.speculate, "--speculate", "item 5 (speculative decoding)"),
         (o.watchdog or o.feed_cache or o.persist_curves,
@@ -371,7 +378,6 @@ def _silent(*args, **kwargs) -> None:
 def _calibrated_device(cache_path: str, engine_name: str, device, say):
     """--calibrated-cache: the device model fitted from the cache's
     measurements of ``engine_name`` under this device's environment."""
-    from ..core.engines import ENGINES_BY_NAME
     from ..profiling import Measurement, ProfileCache, calibrate_engine
     if not os.path.exists(cache_path):
         raise ValueError(
@@ -451,7 +457,7 @@ def serve(options: ServeOptions, *, device="cuda", verbose: bool = False,
         raise RuntimeError("serve: no CUDA device is available; pass "
                            "device='cpu' to run on the CPU")
     w, e, p = options.workload, options.engine, options.pricing
-    o = options.observability
+    o, pl = options.observability, options.placement
     say = print if verbose else _silent
 
     arch = registry.get(w.arch)
@@ -519,40 +525,167 @@ def serve(options: ServeOptions, *, device="cuda", verbose: bool = False,
             on_delta = _silent
 
     step_slo_s = None if p.step_slo_ms is None else p.step_slo_ms / 1e3
+    calibrated_engine = (p.calibrated_engine
+                         or EFFECTIVE_DEFAULTS["calibrated_engine"])
+
+    # device topology: pin the two phase engines onto distinct cards (one
+    # card is shared by both)
+    assignment = None
+    if pl.device_assignment == "auto":
+        assignment = device_assignment(backend=device.type)
+        say(f"[serve] device assignment: {assignment.summary()}",
+            flush=True)
+
+    # measured link bandwidth: a real copy of a representative page batch
+    # between the phase devices, kept in the profile cache so
+    # place_phases(price="measured") prices hand-offs from it later too
+    measured_link_bw = None
+    if pl.measure_link_bw:
+        from ..profiling import record_link_bw
+        from ..profiling import cache as cache_lib
+        link_cache_path = (cache_lib.DEFAULT_CACHE_PATH
+                           if pl.measure_link_bw is True
+                           else pl.measure_link_bw)
+        devs = (assignment if assignment is not None
+                else device_assignment(backend=device.type))
+        link_cache = cache_lib.ProfileCache.load(link_cache_path,
+                                                 strict=False, device=device)
+        m = record_link_bw(link_cache, devs.prefill, devs.decode)
+        link_cache.save(link_cache_path)
+        measured_link_bw = m["link_bw"]
+        say(f"[serve] link {m['src']} -> {m['dst']}: "
+            f"{measured_link_bw / 1e9:.2f} GB/s "
+            f"({m['n_bytes']} bytes in {m['t_median'] * 1e3:.3f} ms) "
+            f"-> {link_cache_path}", flush=True)
+    handoff_link_bw = (pl.handoff_link_bw if pl.handoff_link_bw is not None
+                       else measured_link_bw)
+
+    def _engine(name: str):
+        if name not in ENGINES_BY_NAME:
+            raise ValueError(f"unknown engine {name!r} (choose from "
+                             f"{', '.join(sorted(ENGINES_BY_NAME))})")
+        return ENGINES_BY_NAME[name]
+
+    # phase placement: which engine's device model prices each phase
+    placement_report = None
+    pre_eng = dec_eng = None
+    if pl.placement == "auto":
+        decision = placement_lib.place_phases(
+            cfg, objective=pl.placement_objective,
+            prompt_len=w.prompt_len, gen_len=w.gen_len, batch=e.slots,
+            price="measured" if p.calibrated_cache else "analytic",
+            cache_path=p.calibrated_cache, device=device)
+        say(f"[serve] {decision.summary()}", flush=True)
+        pre_eng = ENGINES_BY_NAME[decision.prefill_engine]
+        dec_eng = ENGINES_BY_NAME[decision.decode_engine]
+        placement_report = {"mode": "auto",
+                            "prefill_engine": decision.prefill_engine,
+                            "decode_engine": decision.decode_engine,
+                            "objective": pl.placement_objective,
+                            "summary": decision.summary()}
+    elif options.disagg_requested:
+        pre_eng = _engine(pl.prefill_engine or "torch")
+        dec_eng = _engine(pl.decode_engine or "torch")
+        placement_report = {"mode": "disagg",
+                            "prefill_engine": pre_eng.name,
+                            "decode_engine": dec_eng.name}
+        for eng, phase in ((pre_eng, "prefill"), (dec_eng, "decode")):
+            # a cost-only CNN engine cannot price an LM phase: ValueError
+            c = placement_lib.phase_cost(
+                cfg, eng, phase, prompt_len=w.prompt_len,
+                gen_len=w.gen_len, batch=e.slots)
+            say(f"[serve] {phase} on {eng.name}: modeled "
+                f"{c.time_s*1e3:.3f}ms, {c.energy_j:.4f}J", flush=True)
+
+    def _phase_device(eng):
+        """Calibrated model when the cache covers this engine, else its own."""
+        if device_model is not None and eng.name == calibrated_engine:
+            return device_model
+        return eng.device
+
     # tracing only when asked (NullTracer otherwise); the registry always
-    # (it backs the metrics dump)
+    # (it backs the hand-off ledger and the metrics dump)
     obs = Observability(tracer=Tracer() if o.trace else None)
-    engine = EngineLoop(
-        cfg, params, n_slots=e.slots, max_seq=max_len, kv_layout=kv_layout,
-        total_blocks=e.total_blocks, prefix_sharing=e.prefix_sharing,
-        device_name=p.device_model, device_model=device_model,
-        step_slo_s=step_slo_s, obs=obs, device=device,
-        cuda_graph=cuda_graph)
-    engine.warmup()
-    metrics = engine.run(requests, on_delta=on_delta)
-    say(f"[serve] token budget {engine.batcher.token_budget}/"
-        f"{e.slots} slots (device model {engine.batcher.device_name})")
+    # auto placement only disaggregates when the analyzer says the split
+    # wins; an explicit --placement disagg always runs the two-engine loop
+    # (same-engine disagg measures the bare phase-boundary overhead)
+    if pre_eng is not None and (pl.placement == "disagg"
+                                or pre_eng.name != dec_eng.name):
+        engine = DisaggregatedEngineLoop(
+            cfg, params,
+            n_prefill_slots=pl.prefill_slots or e.slots,
+            n_decode_slots=e.slots, max_seq=max_len,
+            kv_layout=kv_layout,
+            decode_total_blocks=e.total_blocks,
+            prefix_sharing=e.prefix_sharing,
+            prefill_device=_phase_device(pre_eng),
+            decode_device=_phase_device(dec_eng),
+            step_slo_s=step_slo_s, obs=obs,
+            handoff_link_bw=handoff_link_bw,
+            assignment=assignment,
+            async_handoff=not pl.sync_handoff,
+            device=device, cuda_graph=cuda_graph)
+        engine.warmup()
+        metrics = engine.run(requests, on_delta=on_delta)
+        for b in engine.batchers:
+            say(f"[serve] {b.phase} token budget {b.token_budget}/"
+                f"{b.pool.n_slots} slots (device model {b.device_name})")
+        pools = (("prefill", engine.prefill.pool),
+                 ("decode", engine.decode.pool))
+        batchers = engine.batchers
+        handoff_stats = engine.handoff.stats()
+        decode_target = engine.decode_target
+        for key, v in handoff_stats.items():
+            val = f"{v:.4f}" if isinstance(v, float) else str(v)
+            say(f"[serve] handoff.{key:>17}: {val}", flush=True)
+        say(f"[serve] decode target: {engine.decode_target} engine "
+            f"({'async' if not pl.sync_handoff else 'sync'} hand-off)",
+            flush=True)
+    else:
+        if pre_eng is not None:          # colocated by choice of placement
+            device_model = _phase_device(pre_eng)
+        engine = EngineLoop(
+            cfg, params, n_slots=e.slots, max_seq=max_len,
+            kv_layout=kv_layout, total_blocks=e.total_blocks,
+            prefix_sharing=e.prefix_sharing, device_name=p.device_model,
+            device_model=device_model, step_slo_s=step_slo_s, obs=obs,
+            device=device, cuda_graph=cuda_graph)
+        engine.warmup()
+        metrics = engine.run(requests, on_delta=on_delta)
+        say(f"[serve] token budget {engine.batcher.token_budget}/"
+            f"{e.slots} slots (device model {engine.batcher.device_name})")
+        pools = (("", engine.pool),)
+        batchers = (engine.batcher,)
+        handoff_stats = None
+        decode_target = None
     summary = metrics.summary()
     for key, v in summary.items():
         val = f"{v:.4f}" if isinstance(v, float) else str(v)
         say(f"[serve] {key:>22}: {val}", flush=True)
     # KV-pool ledger + admission accounting (end-of-run state of the block
     # ledger, plus what the batcher did to the queue over the whole run)
-    stats = engine.pool.stats()
-    for key, v in stats.items():
-        val = f"{v:.4f}" if isinstance(v, float) else str(v)
-        say(f"[serve] kv_pool.{key:>15}: {val}", flush=True)
-    b = engine.batcher
-    # the port's batcher is never re-priced (the watchdog is item 6)
-    admission = [{
-        "phase": b.phase, "n_admitted": b.n_admitted,
-        "n_rejected": b.n_rejected, "n_deferred": b.n_deferred,
-        "token_budget": b.token_budget, "n_slots": b.pool.n_slots,
-        "device_model": b.device_name, "n_reprices": 0,
-        "price_source": "analytic"}]
-    say(f"[serve] admission: {b.n_admitted} admitted, "
-        f"{b.n_rejected} rejected (deadline/oversize), "
-        f"{b.n_deferred} deferrals (budget or pool pressure)", flush=True)
+    pool_stats = {}
+    for tag, pool in pools:
+        prefix = f"kv_pool{'.' + tag if tag else ''}"
+        stats = pool.stats()
+        pool_stats[tag or "kv_pool"] = stats
+        for key, v in stats.items():
+            val = f"{v:.4f}" if isinstance(v, float) else str(v)
+            say(f"[serve] {prefix}.{key:>15}: {val}", flush=True)
+    admission = []
+    for b in batchers:
+        tag = f" [{b.phase}]" if len(batchers) > 1 else ""
+        # the port's batchers are never re-priced (the watchdog is item 6)
+        admission.append({
+            "phase": b.phase, "n_admitted": b.n_admitted,
+            "n_rejected": b.n_rejected, "n_deferred": b.n_deferred,
+            "token_budget": b.token_budget, "n_slots": b.pool.n_slots,
+            "device_model": b.device_name, "n_reprices": 0,
+            "price_source": "analytic"})
+        say(f"[serve] admission{tag}: {b.n_admitted} admitted, "
+            f"{b.n_rejected} rejected (deadline/oversize), "
+            f"{b.n_deferred} deferrals (budget or pool pressure)",
+            flush=True)
 
     slo_rows = None
     if o.slo_report:
@@ -577,4 +710,6 @@ def serve(options: ServeOptions, *, device="cuda", verbose: bool = False,
 
     return ServeReport(
         summary=summary, metrics=metrics, requests=list(requests),
-        pool_stats={"kv_pool": stats}, admission=admission, slo=slo_rows)
+        pool_stats=pool_stats, admission=admission, handoff=handoff_stats,
+        slo=slo_rows, placement=placement_report,
+        decode_target=decode_target)

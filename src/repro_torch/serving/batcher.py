@@ -152,6 +152,11 @@ class ContinuousBatcher:
         once."""
         return self._n_deferred_total
 
+    def note_resolved(self, rid: int) -> None:
+        """Forget a deferred request resolved outside :meth:`admit` (the
+        disaggregated loop sheds requests that never fit its decode pool)."""
+        self._deferred_rids.discard(rid)
+
     def priced_step_s(self, n_tokens: int) -> float:
         """This batcher's modeled per-step wall time at ``n_tokens`` tokens
         per step — the cost its token budget prices admission against, on

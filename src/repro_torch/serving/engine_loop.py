@@ -22,13 +22,24 @@ the CPU the same step runs eagerly.
 :class:`SlotEngine` holds the slot state and the burst machinery;
 :class:`EngineLoop` composes one SlotEngine with a pool and a batcher and
 provides the hooks :class:`~repro_torch.serving.driver.OpenLoopDriver`
-calls.  The loop is driven by a clock function so tests can run it
-reproducibly.
+calls, while :class:`~repro_torch.serving.disagg.DisaggregatedEngineLoop`
+composes two — a prefill engine and a decode engine — and migrates slots
+between them (:meth:`SlotEngine.export_slot` / :meth:`SlotEngine.adopt`) at
+the phase boundary.  The loop is driven by a clock function so tests can run
+it reproducibly.
+
+The hand-off differs from the JAX package's in two ways the port's tensors
+force.  A torch slice is a view, not a fresh buffer, so every tensor of an
+exported snapshot is a copy (a snapshot holding views would change when the
+slot is rebound and stepped).  And the CUDA graph reads fixed addresses, so
+an import writes into the engine's existing buffers in place instead of
+rebinding ``cache``.
 """
 from __future__ import annotations
 
 import functools
-from typing import Callable, List, Optional
+import math
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -147,6 +158,10 @@ class SlotEngine:
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         self.cfg = cfg
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # the index its tensors report, so an import can tell a
+            # snapshot already here from one on another card
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.params = T.compute_params(
             T.map_params(lambda _, t: t.to(self.device), params), cfg)
         self.pool = pool
@@ -327,6 +342,214 @@ class SlotEngine:
         self.pool.free(req.rid)
         self.slots[req.slot] = None
         self.active[req.slot] = False
+
+    # ---- slot hand-off (phase disaggregation) ----------------------------
+    def export_slot(self, s: int) -> Dict:
+        """Snapshot every per-slot tensor a request needs to resume on
+        another engine: its KV, position, prompt row, feed state and
+        sampled-output row.  This is the payload the placement analyzer
+        prices with the offload-overhead model.
+
+        Every tensor is a fresh copy, queued on the current stream behind
+        the engine's steps: the slot may be rebound and stepped (a queued
+        graph replay writes its rows) while the snapshot is held.  The
+        dense layout ships the slot's whole ``max_seq`` KV rows; the paged
+        layout ships only the pages that hold written tokens (``kv_tokens``
+        of them), gathered from the arena.  On a card, ``ready`` is an
+        event recorded after the copies (:func:`snapshot_ready`)."""
+        state = {
+            "layout": self.kv_layout,
+            "pos": self.cache["pos"][s].clone(),
+            "cross": None,
+            "prompt": self._prompts[s].clone(),
+            "plen": self._plens[s].clone(),
+            "last_tok": self._last_tok[s].clone(),
+            "out_row": self._out_buf[s].clone(),
+        }
+        if self.kv_layout == "paged":
+            lease = self.pool.lease(self.slots[s].rid)
+            n_used = math.ceil(lease.written_tokens / self.pool.block_size)
+            phys = torch.tensor(lease.blocks[:n_used], dtype=torch.long,
+                                device=self.device)
+            state["layers"] = [{name: a.index_select(0, phys)
+                                for name, a in layer.items()}
+                               for layer in self.cache["layers"]]
+            state["kv_tokens"] = lease.written_tokens
+        else:
+            state["layers"] = [{name: a[s].clone()
+                                for name, a in layer.items()}
+                               for layer in self.cache["layers"]]
+        state["ready"] = (_record_event(torch.cuda.current_stream(
+            self.device)) if self.device.type == "cuda" else None)
+        return state
+
+    def import_slot(self, s: int, state: Dict, *,
+                    dest_blocks: Optional[List[int]] = None,
+                    skip_blocks: int = 0) -> None:
+        """Install an exported slot snapshot into slot ``s`` (bit-exact:
+        the imported request decodes the same tokens it would have produced
+        had it stayed on the exporting engine).
+
+        Every write lands in place in the engine's existing buffers, so the
+        captured graph's replays read the imported state.  The current
+        stream first waits for the snapshot's copies.  Paged layout: the
+        shipped pages land in this engine's arena at ``dest_blocks`` (the
+        slot's new lease, logical order) and the slot's block table is
+        rebuilt from that lease — physical page ids never migrate across
+        engines.  ``skip_blocks`` leading logical pages are NOT landed
+        (prefix sharing: the destination lease already maps them onto
+        shared pages holding bit-identical content, which must not be
+        written)."""
+        if any(t.device != self.device for t in _tensor_leaves(state)):
+            state = state_to_device(state, self.device)
+        layout = state.get("layout", "dense")
+        if layout != self.kv_layout:
+            raise ValueError(
+                f"exported slot uses the {layout!r} KV layout but the "
+                f"importing engine runs {self.kv_layout!r} — phase engines "
+                f"must share a layout for exact migration")
+        if state.get("cross") is not None:
+            raise ValueError(
+                "exported slot carries a cross-attention row but the "
+                "importing engine has no cross cache — silently dropping "
+                "it would corrupt the migrated request (engines built for "
+                "different configs)")
+        if self.kv_layout == "paged":
+            if dest_blocks is None:
+                raise ValueError("paged import needs dest_blocks (the "
+                                 "slot's lease on this engine)")
+            n_used = math.ceil(int(state["kv_tokens"])
+                               / self.pool.block_size)
+            if n_used > len(dest_blocks):
+                raise ValueError(
+                    f"snapshot carries {n_used} written pages but the "
+                    f"destination lease holds {len(dest_blocks)} blocks")
+            skip = min(skip_blocks, n_used)
+        ready = state.get("ready")
+        if ready is not None:
+            torch.cuda.current_stream(self.device).wait_event(ready)
+        if self.kv_layout == "paged":
+            phys = torch.tensor(dest_blocks[skip:n_used], dtype=torch.long,
+                                device=self.device)
+            for layer, shipped in zip(self.cache["layers"], state["layers"]):
+                for name, a in layer.items():
+                    a.index_copy_(0, phys, shipped[name][skip:n_used])
+            table = np.zeros((self.cache["block_tables"].shape[1],),
+                             np.int32)
+            table[:len(dest_blocks)] = dest_blocks
+            self.cache["block_tables"][s].copy_(torch.from_numpy(table))
+        else:
+            for layer, shipped in zip(self.cache["layers"], state["layers"]):
+                for name, a in layer.items():
+                    a[s].copy_(shipped[name])
+        self.cache["pos"][s].copy_(state["pos"])
+        self._prompts[s].copy_(state["prompt"])
+        self._plens[s].copy_(state["plen"])
+        self._last_tok[s].copy_(state["last_tok"])
+        self._out_buf[s].copy_(state["out_row"])
+
+    def adopt(self, req: Request, state: Dict, *, steps_total: int,
+              skip_blocks: int = 0) -> None:
+        """Take over a migrated request: install its snapshot into the slot
+        the pool already assigned (``req.slot``) and reset the per-slot
+        schedule for the steps this engine owes.  ``skip_blocks`` passes
+        through to :meth:`import_slot` (prefix-shared leading pages)."""
+        s = req.slot
+        dest = (self.pool.lease(req.rid).blocks
+                if self.kv_layout == "paged" else None)
+        self.import_slot(s, state, dest_blocks=dest,
+                         skip_blocks=skip_blocks)
+        self.slots[s] = req
+        self.steps_done[s] = 0
+        self.steps_total[s] = steps_total
+        self.active[s] = True
+
+    @staticmethod
+    def state_nbytes(state: Dict) -> int:
+        """Byte size of an exported slot snapshot (the hand-off payload).
+        Non-tensor metadata (layout tag, written-token count, the ready
+        event) is free."""
+        return sum(int(t.nbytes) for t in _tensor_leaves(state))
+
+
+def _tensor_leaves(tree):
+    """Every tensor of a snapshot (nested dicts and lists)."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensor_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensor_leaves(v)
+
+
+def _map_tensors(fn, tree):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(fn, v) for v in tree)
+    return tree
+
+
+def _record_event(stream) -> "torch.cuda.Event":
+    event = torch.cuda.Event()
+    event.record(stream)
+    return event
+
+
+def state_to_device(state: Dict, device) -> Dict:
+    """Copy every tensor of an exported slot snapshot into new storage on
+    ``device`` (non-tensor metadata passes through), the copy being real
+    on the same device too.
+
+    On a card the copies run on a side stream that first waits for the
+    snapshot's ``ready`` event (the export's copies) and for ``device``'s
+    current stream (the destination buffers' allocation), so this returns at once and the exporting engine keeps
+    stepping while the bytes move.  Each source gets ``record_stream`` on
+    the side stream, so the caching allocator cannot hand its memory out
+    before the copy has read it; the snapshot's ``ready`` event is recorded
+    after the copies (:func:`snapshot_ready`, :func:`snapshot_wait`).  Off
+    a card it is a plain synchronous copy."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        out = _map_tensors(lambda t: t.to(device, copy=True), state)
+        out["ready"] = None
+        return out
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    if state.get("ready") is not None:
+        side.wait_event(state["ready"])
+
+    def copy(t: torch.Tensor) -> torch.Tensor:
+        dst = torch.empty_like(t, device=device)
+        with torch.cuda.stream(side):
+            dst.copy_(t, non_blocking=True)
+        if t.device.type == "cuda":
+            t.record_stream(side)
+        dst.record_stream(side)
+        return dst
+
+    out = _map_tensors(copy, state)
+    out["ready"] = _record_event(side)
+    return out
+
+
+def snapshot_ready(state: Dict) -> bool:
+    """True when a snapshot's copies have finished (non-blocking — the
+    overlap probe)."""
+    ready = state.get("ready")
+    return ready is None or ready.query()
+
+
+def snapshot_wait(state: Dict) -> None:
+    """Block until a snapshot's copies complete (the stall the hand-off
+    ledger charges to the adopting engine)."""
+    ready = state.get("ready")
+    if ready is not None:
+        ready.synchronize()
 
 
 class EngineLoop:

@@ -6,7 +6,8 @@
 * ``validate()`` accepts and rejects exactly what the JAX package's does:
   tests/test_api.py's cases, copied, and a few hundred random option sets
   run through both.  Valid options whose modules are not ported raise
-  ``NotImplementedError`` in ``serve``, naming their ROADMAP item.
+  ``NotImplementedError`` in ``serve``, naming their ROADMAP item; the
+  placement options (item 4, ported) serve.
 * ``serve(..., device="cpu")`` at float32 with the same weights gives the
   JAX package's ``serve()`` tokens, continuous (paged and dense) and static;
   its ``--trace`` output passes benchmarks/check_regression.py's gate, and
@@ -232,11 +233,31 @@ def test_validate_decides_as_the_reference_on_random_options():
     ({"feed_cache": True}, "item 6"),
     ({"persist_curves": "curves.json"}, "item 6"),
 ])
-def test_unported_options_raise_with_their_roadmap_item(overrides, item):
+def test_unported_options_raise_with_their_roadmap_item(overrides, item,
+                                                       tmp_path, monkeypatch):
+    """Options whose modules are not ported raise, naming their ROADMAP
+    item.  The name is historical for the ``item 4`` cases: placement and
+    disaggregation are ported, so those options now serve every request,
+    with the colocated run's tokens (placement changes no token)."""
     options = _opts(papi, **overrides)
     options.validate()                       # valid, as in the JAX package
-    with pytest.raises(NotImplementedError, match=item):
-        papi.serve(options, device="cpu")
+    if item != "item 4":
+        with pytest.raises(NotImplementedError, match=item):
+            papi.serve(options, device="cpu")
+        return
+    monkeypatch.chdir(tmp_path)              # --measure-link-bw's cache
+    small = dict(requests=4, prompt_len=8, gen_len=8, rate=1e9, slots=3)
+    report = papi.serve(_opts(papi, **small, **overrides), device="cpu")
+    colocated = papi.serve(_opts(papi, **small), device="cpu")
+    assert report.summary["requests_done"] == small["requests"]
+    assert [len(report.outputs[r.rid]) for r in report.requests] == [
+        r.max_new_tokens for r in report.requests]
+    assert report.outputs == colocated.outputs
+    if overrides.get("placement") == "disagg":
+        assert report.handoff["n_handoffs"] == small["requests"]
+        assert report.placement["mode"] == "disagg"
+    if "measure_link_bw" in overrides:
+        assert (tmp_path / "build" / "profile_cache_torch.json").exists()
 
 
 def test_serve_defaults_to_the_card(monkeypatch):
