@@ -129,8 +129,31 @@ Phases, each of which raises (and so exits nonzero) on a failed check:
              8 keep the tokens (not gated), and tok/s and TTFT p50 of
              colocated, disagg-async and disagg-sync, in turns, median of
              three, each beside the card's name and power limit.
+10. speculation — serve() with draft-model speculative decoding on the
+             same model and workload, the draft the target itself (the
+             default draft, seed 0, sharing the target's weights):
+             --speculate --draft-k 2 with the graphs (the draft's k+1 steps
+             and the verify step each a CUDA graph) and eagerly, then
+             --speculate alone.  Every request must finish; the graph run's
+             tokens must equal the eager run's bit for bit; the priced run
+             must fall back to plain decoding (priced_fallback) with the
+             plain run's tokens bit for bit; the counted run must launch
+             the paged kernel 28 x (plain-step replays + (k+1) x (rounds +
+             the draft's warm-up round) + the one warm-up step) times and
+             nothing else (the verify is a gather plus plain attention), and
+             leave every page of the pool free.  From a live mid-decode
+             state, the verify step's logits at each window offset must
+             agree with k+1 sequential plain steps of the ref impl within
+             DECODE_RTOL, and a round whose proposals are rejected at offset
+             1 must commit 2 tokens per slot.  Prints the acceptance rate,
+             rounds, committed tokens per round, the priced decision's
+             table, the forced run's token agreement with the plain run
+             (reported, not gated: the draft's kernel steps and the verify's
+             gather path round differently) and tok/s of plain, spec-graph
+             and spec-eager, in turns, median of three, beside the card's
+             name and power limit.
 
-Every main-path phase (4, 4b, 6, 7, 8, 9) sets every kernel's launch count
+Every main-path phase (4, 4b, 6, 7, 8, 9, 10) sets every kernel's launch count
 to 0 just before it and reads them all just after (4b's count covers its
 profile and its plan's run).  The last line is {"ok": true,
 "device": {...}}; the line before it holds the card's name and power limit,
@@ -141,7 +164,7 @@ plan at batch 64 and its launches are those of phase 4 (per plan under
 the 28 layers of one prefill forward (flash) or one decode step of the serve
 phase (paged), at the shapes those phases give them, and the launches are
 those of phase 6 (flash) and 8 (paged).  "launches_by_phase" gives every
-kernel's count in every main-path phase.
+kernel's count in every main-path phase, phase 10's under "speculation".
 Without a card, or outside a checkout of the repository, it exits nonzero
 before printing any result.  Imports nothing of JAX or of the JAX package.
 """
@@ -1574,6 +1597,216 @@ def phase_placement(torch, kern, cfg, smi: str):
     return launches
 
 
+def speculation_checks(torch, cfg, params, k: int) -> None:
+    """From a live mid-decode state of the paged engine: the verify step's
+    logits at each window offset against k+1 sequential plain steps (ref
+    impl), and a round whose proposals are rejected at offset 1."""
+    import dataclasses
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import SlotEngine, SpecPlan
+    from repro_torch.serving.kv_pool import KVPool
+    from repro_torch.serving.request import synthetic_workload
+    from repro_torch.serving.speculative import SpeculativeDecoder
+
+    hopper = dataclasses.replace(cfg, paged_attention_impl="hopper")
+    ref_cfg = dataclasses.replace(cfg, paged_attention_impl="ref")
+    max_seq = PROMPT + GEN
+    pool = KVPool(SLOTS, max_seq, block_size=PAGE)
+    eng = SlotEngine(hopper, params, pool, kv_layout="paged")
+    for r in synthetic_workload(SLOTS - 1, rate=1e9, vocab=cfg.vocab,
+                                prompt_lens=(PROMPT,), gen_lens=(GEN,),
+                                seed=6):
+        r.slot = pool.alloc(r.rid, r.total_tokens)
+        eng.bind(r, steps_total=r.prompt_len + r.max_new_tokens - 1)
+    eng.dispatch(PROMPT + GEN // 4, eng.active)      # a quarter into decode
+    live = torch.tensor(eng.active, device="cuda")
+
+    def cloned():
+        return {"layers": [{n: a.clone() for n, a in layer.items()}
+                           for layer in eng.cache["layers"]],
+                "pos": eng.cache["pos"].clone(),
+                "block_tables": eng.cache["block_tables"].clone()}
+
+    window = torch.cat([eng._last_tok[:, None], torch.randint(
+        0, cfg.vocab, (SLOTS, k), device="cuda", dtype=torch.int32,
+        generator=torch.Generator("cuda").manual_seed(7))], dim=1)
+    with torch.no_grad():
+        multi, _ = T.decode_multi_step_slots_paged(
+            eng.params, hopper, cloned(), window, live, max_seq=max_seq,
+            advance=False)
+        cache = cloned()
+        seq = [T.decode_step_slots_paged(eng.params, ref_cfg, cache,
+                                         window[:, i:i + 1], live,
+                                         max_seq=max_seq)[0][:, 0]
+               for i in range(k + 1)]
+    rels = [_rel(multi[:, i][live], seq[i][live]) for i in range(k + 1)]
+    print(f"[speculation] verify step at pos {PROMPT + GEN // 4}, offsets "
+          f"0..{k} against {k + 1} sequential ref steps: max_rel_err "
+          + ", ".join(f"{r:.3e}" for r in rels), flush=True)
+    check(max(rels) <= DECODE_RTOL, f"verify logits differ from sequential "
+          f"steps by {max(rels):.3e} of their largest magnitude")
+
+    # a rejection at offset 1, from one state three times: a round with
+    # every proposal corrupted at offset 0 shows the verify's first token
+    # g1, one proposing g1 shows its second g2, and one proposing g1 and a
+    # token other than g2 must accept 1 and commit 2
+    seen = {}
+
+    def override(round_index, proposals):
+        p = proposals.copy()
+        if round_index == 0:
+            p[:, 0] = (p[:, 0] + 1) % cfg.vocab
+        else:
+            p[:, 0] = seen["g1"]
+        if round_index == 2:
+            p[:, 1] = (seen["g2"] + 1) % cfg.vocab
+        return p
+
+    spec = SpeculativeDecoder(eng, SpecPlan(hopper, eng.params, k=k),
+                              propose_override=override,
+                              target_params=eng.params)
+    mask, pos = eng.active.copy(), eng.steps_done.copy()
+    rem = eng.steps_total - eng.steps_done
+    plens = np.array([0 if r is None else r.prompt_len for r in eng.slots])
+    state = (eng.cache["pos"], eng._last_tok, eng._out_buf)
+    saved = [t.clone() for t in state]
+    spec.sync_drafts(pos, mask)
+    committed = []
+    for _ in range(3):
+        for t, s in zip(state, saved):
+            t.copy_(s)
+        committed.append(spec.round(mask, rem)[mask])
+        seen.setdefault("g1", np.array(eng._last_tok.cpu()))
+        if len(committed) == 2:      # out_buf[x] holds position plen + x
+            seen["g2"] = eng._out_buf.cpu().numpy()[
+                np.arange(SLOTS), np.maximum(pos - plens + 2, 0)]
+    accepted = spec._counts[1].cpu().numpy()[mask]
+    print(f"[speculation] rejection at offset 1: committed per slot "
+          f"{committed[2].tolist()}, accepted {accepted.tolist()} (offset 0 "
+          f"corrupted: {committed[0].tolist()}; g1 proposed: "
+          f"{committed[1].tolist()})", flush=True)
+    check((committed[0] == 1).all() and (committed[1] >= 2).all(),
+          f"rejections at offset 0 / after g1 committed {committed[:2]}")
+    check((committed[2] == 2).all() and (accepted == 1).all(),
+          f"a rejection at offset 1 committed {committed[2].tolist()}, "
+          f"expected 2 per slot")
+
+
+def phase_speculation(torch, kern, cfg, params, smi: str):
+    """serve() with speculative decoding (self-draft, k 2): graph vs eager
+    bitwise, the priced fallback against plain bitwise, launches counted
+    through the replays, the pool drained; the verify step against
+    sequential steps and a rejection at offset 1; tok/s in turns."""
+    from repro_torch.serving import SlotEngine, api
+    from repro_torch.serving.speculative import DraftEngine
+
+    k = 2
+    n_req = SERVE_ENTRY["requests"]
+    forced = {"speculate": True, "draft_k": k}
+    runs = {"plain": ({}, {}), "spec-graph": (forced, {}),
+            "spec-eager": (forced, {"cuda_graph": False}),
+            "priced": ({"speculate": True}, {})}
+
+    def run(name, **fields):
+        opts, kw = runs[name]
+        report = api.serve(serve_options(api, **opts, **fields), **kw)
+        torch.cuda.synchronize()
+        check(sum(len(r.output) == r.max_new_tokens for r in report.requests)
+              == len(report.requests) == fields.get("requests", n_req),
+              f"{name}: not every request finished")
+        return report
+
+    t0 = time.perf_counter()
+    for name in runs:                    # first-call costs of each path
+        run(name, requests=2, gen_len=8)
+    print(f"[speculation] first calls in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # the counted run, recording the target engine's plain steps
+    dispatch, plain_steps = SlotEngine.dispatch, []
+
+    def counted_dispatch(self, burst, active_np):
+        plain_steps.append(burst)
+        return dispatch(self, burst, active_np)
+
+    SlotEngine.dispatch = counted_dispatch
+    try:
+        for fn in kern.values():
+            fn.launches = 0
+        graph = run("spec-graph")
+        launches = {name: fn.launches for name, fn in kern.items()}
+    finally:
+        SlotEngine.dispatch = dispatch
+    spec = graph.speculation
+    rounds, steps = spec["n_rounds"], sum(plain_steps)
+    want = cfg.n_layers * (steps + (k + 1) * (rounds + DraftEngine.WARMUP_ROUNDS)
+                           + SlotEngine.WARMUP_STEPS)
+    print(f"[speculation] spec-graph k={k}: {rounds} rounds, "
+          f"{spec['n_committed']} committed of {spec['n_proposed']} proposed"
+          f" ({spec['n_committed'] / max(rounds, 1):.3f} committed tokens "
+          f"per round over {spec['n_proposed'] // max(k * rounds, 1)} "
+          f"slots on average), acceptance {spec['acceptance_rate']}, "
+          f"{steps} plain-step replays, driver steps "
+          f"{graph.summary['steps']}; launches={launches} (expected "
+          f"paged_attention x {cfg.n_layers} x ({steps} + {k + 1} x "
+          f"({rounds} + {DraftEngine.WARMUP_ROUNDS}) + "
+          f"{SlotEngine.WARMUP_STEPS}) = {want}) ({smi})", flush=True)
+    check(rounds > 0 and spec["engaged"] and spec["forced"],
+          f"speculation never engaged: {spec}")
+    check(launches["paged_attention"] == want
+          and sum(launches.values()) == want,
+          f"speculation launches {launches}, expected paged_attention x "
+          f"{want} and nothing else")
+    pool = graph.pool_stats["kv_pool"]
+    check(pool["blocks_in_use"] == 0 and pool["slots_in_use"] == 0,
+          f"pages left in use after the run: {pool}")
+    eager = run("spec-eager")
+    same = graph.outputs == eager.outputs
+    print(f"[speculation] spec-graph tokens bitwise equal to spec-eager: "
+          f"{same}", flush=True)
+    check(same, "the speculative graphs' tokens differ from the eager run's")
+    plain = run("plain")
+    priced = run("priced")
+    decision = priced.speculation["decision"]
+    print(f"[speculation] --speculate alone: priced_fallback="
+          f"{priced.speculation['priced_fallback']}, acceptance prior "
+          f"{priced.speculation['acceptance_prior']} "
+          f"({priced.speculation['acceptance_source']}); plain "
+          f"{decision['plain_step_s']:.6e} s/token against spec "
+          f"{decision['spec_step_s']:.6e} at k={decision['k']} (x"
+          f"{decision['projected_speedup']:.4f}); table (k, s/token) "
+          f"{decision['table']}", flush=True)
+    check(priced.speculation["priced_fallback"] is True
+          and not priced.speculation["engaged"],
+          f"the self-draft was not priced out: {priced.speculation}")
+    check(priced.outputs == plain.outputs,
+          "the priced fallback's tokens differ from the plain run's")
+    agree = np.mean([np.mean(np.asarray(graph.outputs[rid])
+                             == np.asarray(toks))
+                     for rid, toks in plain.outputs.items()])
+    print(f"[speculation] forced spec tokens equal to plain: "
+          f"{graph.outputs == plain.outputs} ({agree:.4f} of tokens; "
+          f"reported, not gated: the draft's kernel steps and the verify's "
+          f"gather path round differently)", flush=True)
+    speculation_checks(torch, cfg, params, k)
+
+    # tok/s and TTFT p50 of each path, in turns, median of three
+    timed = ("plain", "spec-graph", "spec-eager")
+    rows = {name: [] for name in timed}
+    for _ in range(3):
+        for name in timed:
+            rep = run(name)
+            rows[name].append((rep.summary["tok_per_s"],
+                               rep.summary["ttft_p50_s"]))
+    for name, vals in rows.items():
+        print(f"[speculation] {name}: tok/s="
+              f"{statistics.median(v[0] for v in vals):.1f} (runs "
+              f"{', '.join(f'{v[0]:.1f}' for v in vals)}) ttft_p50_s="
+              f"{statistics.median(v[1] for v in vals):.4f} ({smi})",
+              flush=True)
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -1631,8 +1864,8 @@ def main() -> None:
     # 5. the attention kernels against their plain versions
     lm = phase_lm_kernels(torch, F, ref, kern)
 
-    # 6-9. qwen2-1.5B at full width: prefill, serving, the serve entry,
-    # phase placement
+    # 6-10. qwen2-1.5B at full width: prefill, serving, the serve entry,
+    # phase placement, speculative decoding
     t0 = time.perf_counter()
     params = T.compute_params(T.init_params(QWEN2, seed=0), QWEN2)
     torch.cuda.synchronize()
@@ -1641,13 +1874,16 @@ def main() -> None:
     prefill_launches = phase_prefill(torch, kern, QWEN2, params)
     serve_launches, _, _ = phase_serve(torch, kern, QWEN2, params)
     entry_launches = phase_serve_entry(torch, kern, QWEN2, params)
-    del params
     # 9. phase placement and disaggregated serving through the entry point
     placement_launches = phase_placement(torch, kern, QWEN2, smi)
+    # 10. speculative decoding through the entry point
+    spec_launches = phase_speculation(torch, kern, QWEN2, params, smi)
+    del params
     by_phase = {"alexnet": launches, "measured": measured_launches,
                 "prefill": prefill_launches, "serve": serve_launches,
                 "serve_entry": entry_launches,
-                "placement": placement_launches}
+                "placement": placement_launches,
+                "speculation": spec_launches}
     home = {"flash_attention": "prefill", "paged_attention": "serve_entry"}
 
     rows = []

@@ -20,9 +20,12 @@ through the dense decode step.  ``--trace``, ``--metrics-out`` and
 table.  ``--placement disagg`` serves on a prefill and a decode slot engine
 (each its own CUDA graph on a card) with an exact slot hand-off,
 ``--placement auto`` lets the phase-placement analyzer pick the engines.
-Flags whose modules are not ported yet (speculation, the watchdog and
-telemetry feedback, the production meshes) exit with the ROADMAP item that
-ports them.
+``--speculate`` prices draft-model speculative decoding against plain decode
+and engages it where it wins (``--draft-k K`` forces depth K, ``--draft-arch``
+names the draft), colocated or disaggregated; it prints the
+``[serve] speculation: ...`` lines.  Flags whose modules are not ported yet
+(the watchdog and telemetry feedback, the production meshes) exit with the
+ROADMAP item that ports them.
 """
 from __future__ import annotations
 

@@ -11,7 +11,10 @@ Full-sequence attention (prefill), selected by ``ModelConfig.attention_impl``:
 
 Single-token decode attention against a dense cache (``decode_attention``)
 or a block-paged arena (``paged_decode_attention``, impl ``ref`` or
-``hopper``, selected by ``ModelConfig.paged_attention_impl``).
+``hopper``, selected by ``ModelConfig.paged_attention_impl``), and its
+M-token form for speculative verification (``decode_attention_multi``,
+``paged_decode_attention_multi``: the gather path only, as in the JAX
+package, which has no kernel for it either).
 
 All take q: (B, HQ, S, D), k/v: (B, HK, T, D) with HQ % HK == 0 and fold the
 GQA group into the query side, so KV is never repeated.  The JAX package's
@@ -172,3 +175,60 @@ def paged_decode_attention(q, k_arena, v_arena, block_tables, pos, *,
     k = paged_gather(k_arena, block_tables, max_seq)
     v = paged_gather(v_arena, block_tables, max_seq)
     return decode_attention(q, k, v, pos=pos, window=None)
+
+
+def decode_attention_multi(q, k_cache, v_cache, *,
+                           pos: torch.Tensor) -> torch.Tensor:
+    """M-token verification attention against a cache.
+
+    q: (B, HQ, M, D); caches: (B, HK, T, D).  ``pos`` is a (B,) tensor of
+    per-slot absolute positions of the FIRST query token: query m of slot b
+    sits at position pos[b] + m and attends over cache slots <= pos[b] + m
+    (the cache must already hold the window's K/V at positions
+    pos..pos+M-1).  This is :func:`decode_attention` with a query axis:
+    speculative verification feeds the committed chain head plus k drafted
+    tokens in one step instead of k+1 sequential single-token steps.
+    Windowed layers are unsupported: the rolling buffer's write-back
+    overlaps itself inside one multi-token window.
+
+    The same no-upcast rule as :func:`decode_attention`: q is cast to the
+    cache dtype, products of cache-dtype values are summed in fp32.  The
+    window's offsets sit on the batch side of the contractions, (B, M, HK)
+    products of (G, D) @ (D, T) each, the shapes a single-token step
+    contracts, so on the CPU every offset's numbers are that step's bit for
+    bit; one (G * M, D) product per (slot, head) takes another GEMM route
+    there and rounds differently, which would break speculation's identity
+    with plain decoding.
+    """
+    b, hq, m, d = q.shape
+    hk, t = k_cache.shape[1], k_cache.shape[2]
+    qg = _gqa_fold(q, hk).permute(0, 3, 1, 2, 4)            # (B,M,HK,G,D)
+    k_rows = k_cache.float()[:, None].expand(b, m, hk, t, d)
+    v_rows = v_cache.float()[:, None].expand(b, m, hk, t, d)
+    logits = torch.einsum("bmkgd,bmktd->bmkgt",
+                          qg.to(k_cache.dtype).float(),
+                          k_rows) * (1.0 / (d ** 0.5))
+    slots = torch.arange(t, device=q.device)
+    qpos = pos[:, None] + torch.arange(m, device=q.device)  # (B, M)
+    valid = slots[None, None] <= qpos[:, :, None]            # (B, M, T)
+    logits = torch.where(valid[:, :, None, None], logits, _NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bmkgt,bmktd->bmkgd",
+                       probs.to(v_cache.dtype).float(), v_rows)
+    return out.reshape(b, m, hq, d).transpose(1, 2).to(q.dtype)
+
+
+def paged_decode_attention_multi(q, k_arena, v_arena, block_tables, pos, *,
+                                 max_seq: int) -> torch.Tensor:
+    """M-token verification attention against a block-paged cache.
+
+    Shapes as :func:`paged_decode_attention` with q: (B, HQ, M, D).  Only
+    the gather path exists, on the CPU and on a card alike: the gathered
+    rows equal the dense layout's at every attended position, and the JAX
+    package's counterpart reaches no Pallas kernel either (a fused
+    multi-query kernel is a follow-on there).
+    """
+    from ..kernels.ref import paged_gather
+    k = paged_gather(k_arena, block_tables, max_seq)
+    v = paged_gather(v_arena, block_tables, max_seq)
+    return decode_attention_multi(q, k, v, pos=pos)

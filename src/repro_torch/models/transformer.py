@@ -1,8 +1,9 @@
 """The config-driven transformer, dense all-attention path (qwen2, llama-style
 decoders): full-sequence forward (training shape and prefill), the decode
 step over a dense cache (the static server's; a rolling buffer for windowed
-configs), and the slot decode steps the serving engine runs, on the dense
-slot cache and on the block-paged one.
+configs), the slot decode steps the serving engine runs, on the dense slot
+cache and on the block-paged one, and the block-paged M-token step that
+speculative decoding verifies with.
 
 Plain functions on explicit parameters, as in the JAX package: ``params`` is
 a dict holding ``embed`` (V, D), ``final_norm`` (D,), ``layers`` — one dict
@@ -448,4 +449,91 @@ def decode_step_slots_paged(params: Params, cfg: ModelConfig,
                               max_seq)
     logits = _logits(params, x, cfg)
     pos.copy_(torch.where(active, pos + 1, pos))
+    return logits, cache
+
+
+def _multi_attn_block_paged(p: Params, x: torch.Tensor, layer: Dict[str, Any],
+                            cfg: ModelConfig, pos: torch.Tensor,
+                            block_tables: torch.Tensor, active: torch.Tensor,
+                            max_seq: int) -> torch.Tensor:
+    """Verification-window counterpart of :func:`_paged_attn_block`: x is
+    (B, M, d), M consecutive tokens per slot at positions pos..pos+M-1,
+    whose K/V goes into the slot's pages in one ``index_put_``; each query
+    attends over cache slots <= its own position (the freshly written
+    window prefix included, as M sequential single-token steps see it)."""
+    h_in = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _project_qkv(p["attn"], h_in, cfg)             # (B,H,M,hd)
+    m = x.shape[1]
+    wpos = pos[:, None] + torch.arange(m, dtype=pos.dtype,
+                                       device=x.device)      # (B, M)
+    posq = wpos[:, None, :]
+    q = apply_rope(q, posq, cfg.rope_theta)
+    k = apply_rope(k, posq, cfg.rope_theta)
+
+    k_arena, v_arena = layer["k"], layer["v"]
+    bs = k_arena.shape[-2]
+    nb = block_tables.shape[1]
+    trash = k_arena.shape[0] - 1
+    j = torch.clamp(wpos.long() // bs, 0, nb - 1)
+    off = (wpos.long() % bs)[:, :, None]
+    phys = torch.gather(block_tables, 1, j).long()
+    phys = torch.where(active[:, None], phys, trash)[:, :, None]
+    heads = torch.arange(cfg.n_kv_heads, device=x.device)[None, None, :]
+    # an active slot's window positions are distinct and slots own disjoint
+    # pages, so its writes never collide.  Inactive slots all write to the
+    # trash page, where their indices collide; index_put_ keeps an arbitrary
+    # one of colliding writes, which is harmless because the trash page is
+    # never attended
+    k_arena.index_put_((phys, heads, off),
+                       k.transpose(1, 2).to(k_arena.dtype))
+    v_arena.index_put_((phys, heads, off),
+                       v.transpose(1, 2).to(v_arena.dtype))
+
+    out = attn_lib.paged_decode_attention_multi(
+        q, k_arena, v_arena, block_tables, pos, max_seq=max_seq)
+    return _finish_block(p, x, out, cfg)
+
+
+def decode_multi_step_slots_paged(params: Params, cfg: ModelConfig,
+                                  cache: Dict[str, Any], tokens: torch.Tensor,
+                                  active: torch.Tensor, *, max_seq: int,
+                                  advance: bool = True):
+    """M-token engine step over independent slots on the block-paged cache.
+
+    tokens (B, M) int: M *consecutive* chain tokens per slot starting at
+    ``cache["pos"]``, against the cache contract of
+    :func:`decode_step_slots_paged`.  Returns (logits (B, M, V), cache):
+    logits[:, i] conditions on tokens[:, :i+1], so feeding the committed
+    head plus k drafted tokens gives the target's greedy continuation at
+    every window offset in ONE step (speculative verification), and feeding
+    a prompt chunk replays prefill M tokens at a time (the draft's
+    catch-up).
+
+    ``advance`` True moves each active slot's position by M; False leaves
+    ``pos`` alone so the caller commits only the accepted prefix.
+    Positions pos+c..pos+M-1 then hold *stale* K/V from the rejected tail,
+    which is safe: every later feed starts at the committed position and
+    rewrites forward before attention reaches them (attention masks
+    kv_slot <= query position).
+
+    Everything is in place, as in :func:`decode_step_slots_paged`: the
+    arenas through ``index_put_``, ``pos`` through ``copy_``, so a CUDA graph
+    of a step that calls this reads and writes the cache's own buffers.
+    The attention is the gather path whatever ``cfg.paged_attention_impl``
+    says: there is no multi-query kernel.  Requires an all-attention
+    config.
+    """
+    if any(t != "attn" for t in cfg.layer_types()):
+        raise ValueError(
+            "multi-token slot step requires an all-attention config: "
+            "recurrent/SSM layer state has no multi-token slot step")
+    pos = cache["pos"]
+    block_tables = cache["block_tables"]
+    x = _embed(params, tokens, cfg)
+    for p, layer in zip(params["layers"], cache["layers"]):
+        x = _multi_attn_block_paged(p, x, layer, cfg, pos, block_tables,
+                                    active, max_seq)
+    logits = _logits(params, x, cfg)
+    if advance:
+        pos.copy_(torch.where(active, pos + tokens.shape[1], pos))
     return logits, cache

@@ -1,5 +1,6 @@
 """Serving observability: the tracer, the metrics registry, their Chrome
-trace-event and JSON exports, and SLO attainment.
+trace-event and JSON exports, SLO attainment and the speculative-decoding
+acceptance tracker.
 
 One :class:`Observability` bundle travels through the serving stack (driver,
 engine loop, pool) so every layer instruments against the same tracer and
@@ -10,7 +11,7 @@ guards on ``tracer.enabled``) and a live-but-unexported
 
 The JAX package's bundle also carries telemetry feedback and a performance
 watchdog (both off by default there); they and the latency curves are not
-ported yet.
+ported yet (ROADMAP §1 item 6), so this bundle has neither.
 """
 from __future__ import annotations
 
@@ -19,11 +20,11 @@ from typing import Optional
 from .export import chrome_trace, trace_health, write_metrics, write_trace
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry
 from .trace import NullTracer, TraceEvent, Tracer, default_clock
-from .watchdog import (class_boundaries, format_slo_report, request_class,
-                       slo_attainment)
+from .watchdog import (AcceptanceTracker, class_boundaries,
+                       format_slo_report, request_class, slo_attainment)
 
 __all__ = [
-    "Counter", "Gauge", "Histogram", "MetricsRegistry", "NullTracer",
+    "AcceptanceTracker", "Counter", "Gauge", "Histogram", "MetricsRegistry", "NullTracer",
     "Observability", "TraceEvent", "Tracer", "chrome_trace",
     "class_boundaries", "default_clock", "format_slo_report",
     "request_class", "slo_attainment", "trace_health", "write_metrics",

@@ -32,11 +32,19 @@ over exactly; ``--device-assignment auto`` places the phases on distinct
 cards where two are visible, ``--measure-link-bw`` measures the copy rate
 between them into the profile cache.
 
+Speculative decoding rides the same path: ``speculative.speculate=True``
+asks the trade-off analyzer (`placement.choose_speculation`) to price a
+draft model against plain decode at the measured-or-prior acceptance rate
+and only engages speculation when it wins; ``draft_k`` forces a depth
+regardless.  Colocated or disaggregated, the draft's steps run the
+paged-attention kernel and the target verifies k+1 positions per round.
+When the draft is the target (the default draft is qwen2_1_5b, seed 0),
+the draft shares the target engine's weights.
+
 Options whose modules are not ported yet pass ``validate()`` as they do in
 the JAX package and then raise ``NotImplementedError`` in ``serve``, naming
-the ROADMAP item that ports them: speculative decoding (§1 item 5), the
-watchdog and telemetry feedback (item 6) and the production meshes (item
-9).
+the ROADMAP item that ports them: the watchdog and telemetry feedback (§1
+item 6) and the production meshes (item 9).
 """
 from __future__ import annotations
 
@@ -51,12 +59,15 @@ from ..configs import registry
 from ..core.engines import ENGINES_BY_NAME
 from ..launch.mesh import device_assignment
 from ..models import transformer as T
-from ..obs import (Observability, Tracer, default_clock, format_slo_report,
-                   slo_attainment, write_metrics, write_trace)
+from ..obs import (AcceptanceTracker, Observability, Tracer, default_clock,
+                   format_slo_report, slo_attainment, write_metrics,
+                   write_trace)
 from . import placement as placement_lib
 from .disagg import DisaggregatedEngineLoop
 from .engine_loop import EngineLoop
 from .request import prefix_shared_workload, synthetic_workload
+from .speculative import (DEFAULT_ACCEPTANCE_PRIOR, SpecPlan,
+                          SpeculativeEngineLoop, validate_speculation)
 
 # defaults applied at serve() time for options whose parser default is None
 # so validate() can tell "user set it" from "left alone"; the JAX package's,
@@ -291,11 +302,9 @@ class ServeOptions:
 def refuse_unported(options: ServeOptions) -> None:
     """Raise NotImplementedError for a valid option whose module the port
     does not have yet, naming the ROADMAP §1 item that ports it."""
-    e = options.engine
-    o, s = options.observability, options.speculative
+    e, o = options.engine, options.observability
     unported = (
         (e.mesh != "host", f"--mesh {e.mesh}", "item 9 (sharding)"),
-        (s.speculate, "--speculate", "item 5 (speculative decoding)"),
         (o.watchdog or o.feed_cache or o.persist_curves,
          "--watchdog, --feed-cache and --persist-curves",
          "item 6 (the rest of obs)"),
@@ -404,6 +413,26 @@ def _calibrated_device(cache_path: str, engine_name: str, device, say):
     return model
 
 
+def _acceptance_prior(options: ServeOptions, device) -> Tuple[float, str]:
+    """Acceptance rate to price speculation with: a measured rate from the
+    --calibrated-cache (under this device's environment), else the
+    optimistic engagement prior.  The JAX package also reads the
+    --feed-cache and --persist-curves caches; the port refuses those
+    options until ROADMAP §1 item 6 ports them."""
+    from ..profiling.acceptance import cached_acceptance
+    from ..profiling.cache import ProfileCache
+    p, s = options.pricing, options.speculative
+    draft = s.draft_arch or EFFECTIVE_DEFAULTS["draft_arch"]
+    path = p.calibrated_cache
+    if path and os.path.exists(path):
+        rate = cached_acceptance(
+            ProfileCache.load(path, strict=False, device=device),
+            draft_arch=draft, target_arch=options.workload.arch)
+        if rate is not None:
+            return rate, f"measured:{path}"
+    return DEFAULT_ACCEPTANCE_PRIOR, "prior"
+
+
 def _serve_static(options: ServeOptions, cfg, params, device, say
                   ) -> ServeReport:
     w, e = options.workload, options.engine
@@ -457,7 +486,8 @@ def serve(options: ServeOptions, *, device="cuda", verbose: bool = False,
         raise RuntimeError("serve: no CUDA device is available; pass "
                            "device='cpu' to run on the CPU")
     w, e, p = options.workload, options.engine, options.pricing
-    o, pl = options.observability, options.placement
+    o, pl, s = (options.observability, options.placement,
+                options.speculative)
     say = print if verbose else _silent
 
     arch = registry.get(w.arch)
@@ -603,6 +633,64 @@ def serve(options: ServeOptions, *, device="cuda", verbose: bool = False,
             return device_model
         return eng.device
 
+    # ---- speculative decoding plan ---------------------------------------
+    spec_plan = None
+    spec_report = None
+    if s.speculate:
+        draft_arch = s.draft_arch or EFFECTIVE_DEFAULTS["draft_arch"]
+        draft_reg = registry.get(draft_arch)
+        draft_cfg = (draft_reg.smoke if w.scale == "smoke"
+                     else draft_reg.config)
+        if draft_cfg is None:
+            raise ValueError(f"--draft-arch {draft_arch} is not a "
+                             f"decoder-only LM at scale {w.scale}")
+        if device.type == "cuda":
+            draft_cfg = dataclasses.replace(draft_cfg,
+                                            paged_attention_impl="hopper")
+        validate_speculation(cfg, draft_cfg, kv_layout=kv_layout,
+                             prefix_sharing=e.prefix_sharing)
+        alpha, alpha_src = _acceptance_prior(options, device)
+
+        def _decide(a: float):
+            return placement_lib.choose_speculation(
+                cfg, draft_cfg, kv_len=max_len, n_tokens=e.slots,
+                acceptance=a, device_name=p.device_model,
+                draft_name=draft_arch)
+
+        decision = _decide(alpha)
+        forced = s.draft_k is not None
+        k = s.draft_k if forced else decision.k
+        if forced or decision.use:
+            # a draft that is the target shares its weights (both seed 0)
+            draft_params = (params if draft_cfg == cfg
+                            else build_params(draft_cfg, device))
+            tracker = AcceptanceTracker(decide=None if forced else _decide)
+            spec_plan = SpecPlan(draft_cfg, draft_params, k=k,
+                                 draft_name=draft_arch, decision=decision,
+                                 forced=forced, tracker=tracker)
+            say(f"[serve] speculation: draft {draft_arch} k={k} "
+                f"acceptance={alpha:.2f} ({alpha_src}) projected "
+                f"x{decision.projected_speedup:.2f}"
+                f"{' [forced]' if forced else ''}", flush=True)
+        else:
+            # the analyzer priced speculation worse than plain decode at
+            # this acceptance rate — serve plain, record why
+            spec_report = {"engaged": False, "priced_fallback": True,
+                           "acceptance_prior": alpha,
+                           "acceptance_source": alpha_src,
+                           "decision": decision.summary()}
+            say(f"[serve] speculation: prices worse than plain decode at "
+                f"acceptance={alpha:.2f} ({alpha_src}, "
+                f"x{decision.projected_speedup:.2f}) — serving plain",
+                flush=True)
+
+    def _reprice_for_speculation(batcher) -> None:
+        """An engaged speculation the analyzer chose prices admission on
+        its per-token cost."""
+        if spec_plan is not None and spec_plan.decision.use:
+            batcher.reprice(lambda n: spec_plan.decision.spec_step_s * n,
+                            source="speculation")
+
     # tracing only when asked (NullTracer otherwise); the registry always
     # (it backs the hand-off ledger and the metrics dump)
     obs = Observability(tracer=Tracer() if o.trace else None)
@@ -623,8 +711,10 @@ def serve(options: ServeOptions, *, device="cuda", verbose: bool = False,
             step_slo_s=step_slo_s, obs=obs,
             handoff_link_bw=handoff_link_bw,
             assignment=assignment,
-            async_handoff=not pl.sync_handoff,
+            async_handoff=not pl.sync_handoff, plan=spec_plan,
             device=device, cuda_graph=cuda_graph)
+        spec = engine.spec
+        _reprice_for_speculation(engine.decode_batcher)
         engine.warmup()
         metrics = engine.run(requests, on_delta=on_delta)
         for b in engine.batchers:
@@ -644,12 +734,20 @@ def serve(options: ServeOptions, *, device="cuda", verbose: bool = False,
     else:
         if pre_eng is not None:          # colocated by choice of placement
             device_model = _phase_device(pre_eng)
-        engine = EngineLoop(
-            cfg, params, n_slots=e.slots, max_seq=max_len,
-            kv_layout=kv_layout, total_blocks=e.total_blocks,
-            prefix_sharing=e.prefix_sharing, device_name=p.device_model,
-            device_model=device_model, step_slo_s=step_slo_s, obs=obs,
-            device=device, cuda_graph=cuda_graph)
+        loop_kwargs = dict(
+            n_slots=e.slots, max_seq=max_len, kv_layout=kv_layout,
+            total_blocks=e.total_blocks, prefix_sharing=e.prefix_sharing,
+            device_name=p.device_model, device_model=device_model,
+            step_slo_s=step_slo_s, obs=obs, device=device,
+            cuda_graph=cuda_graph)
+        if spec_plan is not None:
+            engine = SpeculativeEngineLoop(cfg, params, plan=spec_plan,
+                                           **loop_kwargs)
+            spec = engine.spec
+        else:
+            engine = EngineLoop(cfg, params, **loop_kwargs)
+            spec = None
+        _reprice_for_speculation(engine.batcher)
         engine.warmup()
         metrics = engine.run(requests, on_delta=on_delta)
         say(f"[serve] token budget {engine.batcher.token_budget}/"
@@ -675,17 +773,27 @@ def serve(options: ServeOptions, *, device="cuda", verbose: bool = False,
     admission = []
     for b in batchers:
         tag = f" [{b.phase}]" if len(batchers) > 1 else ""
-        # the port's batchers are never re-priced (the watchdog is item 6)
         admission.append({
             "phase": b.phase, "n_admitted": b.n_admitted,
             "n_rejected": b.n_rejected, "n_deferred": b.n_deferred,
             "token_budget": b.token_budget, "n_slots": b.pool.n_slots,
-            "device_model": b.device_name, "n_reprices": 0,
-            "price_source": "analytic"})
+            "device_model": b.device_name, "n_reprices": b.n_reprices,
+            "price_source": b.price_source})
         say(f"[serve] admission{tag}: {b.n_admitted} admitted, "
             f"{b.n_rejected} rejected (deadline/oversize), "
             f"{b.n_deferred} deferrals (budget or pool pressure)",
             flush=True)
+
+    # ---- speculation accounting ------------------------------------------
+    if spec is not None:
+        spec_report = dict(spec.stats())
+        spec_report["engaged"] = True
+        rate = spec.acceptance_rate
+        say(f"[serve] speculation: {spec.n_rounds} rounds, "
+            f"{spec.n_committed} committed / {spec.n_proposed} proposed "
+            f"(acceptance {rate if rate is not None else float('nan'):.3f})"
+            + (" [disabled mid-run: priced worse at measured acceptance]"
+               if spec.disabled_midrun else ""), flush=True)
 
     slo_rows = None
     if o.slo_report:
@@ -703,13 +811,16 @@ def serve(options: ServeOptions, *, device="cuda", verbose: bool = False,
             f"({obs.tracer.n_dropped} dropped, {obs.tracer.n_open} "
             f"unclosed) -> {path}", flush=True)
     if o.metrics_out:
+        extra = {"summary": summary}
+        if spec_report is not None:
+            extra["speculation"] = spec_report
         path = write_metrics(obs.registry, o.metrics_out,
                              tracer=obs.tracer if o.trace else None,
-                             extra={"summary": summary})
+                             extra=extra)
         say(f"[serve] metrics snapshot -> {path}", flush=True)
 
     return ServeReport(
         summary=summary, metrics=metrics, requests=list(requests),
         pool_stats=pool_stats, admission=admission, handoff=handoff_stats,
         slo=slo_rows, placement=placement_report,
-        decode_target=decode_target)
+        decode_target=decode_target, speculation=spec_report)

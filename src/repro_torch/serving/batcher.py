@@ -20,8 +20,10 @@ Invariant: admission is pure *scheduling* policy.  Greedy per-request
 outputs depend only on the prompt and the model, never on the admission
 order or the token budget.
 
-The JAX package's batcher can also be re-priced mid-run by its performance
-watchdog; the watchdog is not ported yet, so this one prices analytically.
+:meth:`ContinuousBatcher.reprice` installs another step-time function:
+speculative decoding re-prices admission when it engages and again when its
+acceptance veto turns it off.  The JAX package's performance watchdog
+re-prices through the same method; that watchdog is not ported yet.
 """
 from __future__ import annotations
 
@@ -122,7 +124,14 @@ class ContinuousBatcher:
         self.device_name = (device_model.name if device_model is not None
                             else device_name)
         self.device_model = device_model
+        # kept so a mid-run re-price can refit the token budget against the
+        # same objective admission was originally sized for
         self.step_slo_s = step_slo_s
+        # installed by reprice(): a step-time function that replaces the
+        # analytic pricing
+        self._price_override = None
+        self._price_source = "analytic"
+        self.n_reprices = 0
         if token_budget is None:
             if step_slo_s is None:
                 token_budget = pool.n_slots
@@ -145,6 +154,13 @@ class ContinuousBatcher:
         self._n_deferred_total = 0
 
     @property
+    def price_source(self) -> str:
+        """Where the current pricing came from: ``analytic`` until
+        :meth:`reprice` installs another source (``speculation`` when
+        speculation engages, ``speculation-disabled`` after its veto)."""
+        return self._price_source
+
+    @property
     def n_deferred(self) -> int:
         """Distinct requests ever left queued by an admit pass (budget or
         pool pressure) — comparable to the admitted/rejected counts.
@@ -161,10 +177,41 @@ class ContinuousBatcher:
         """This batcher's modeled per-step wall time at ``n_tokens`` tokens
         per step — the cost its token budget prices admission against, on
         its own device model.  The tracer stamps it into admission spans so
-        traces carry priced-vs-observed cost side by side."""
+        traces carry priced-vs-observed cost side by side.  After
+        :meth:`reprice` this is the installed step-time function instead of
+        the analytic model."""
+        if self._price_override is not None:
+            return self._price_override(max(int(n_tokens), 1))
+        return self.analytic_step_s(n_tokens)
+
+    def analytic_step_s(self, n_tokens: int) -> float:
+        """The pure analytic price, ignoring any installed override."""
         return step_time_model(self.cfg, self.pool.max_seq,
                                max(int(n_tokens), 1), self.device_name,
                                device=self.device_model)
+
+    def reprice(self, step_time_fn, *, source: str = "telemetry") -> dict:
+        """Install ``step_time_fn`` (tokens -> seconds) as this batcher's
+        pricing and refit the token budget against the stored step SLO, so
+        later admission (and the ``priced_step_s`` stamped into traces)
+        prices on it.  Returns a JSON-safe event describing the change."""
+        old_budget = self.token_budget
+        self._price_override = step_time_fn
+        self._price_source = source
+        if self.step_slo_s is not None:
+            budget = 1
+            for k in range(2, self.pool.n_slots + 1):
+                if step_time_fn(k) > self.step_slo_s:
+                    break
+                budget = k
+            self.token_budget = min(budget, self.pool.n_slots)
+        self.n_reprices += 1
+        return {"pricing": source,
+                "token_budget_old": int(old_budget),
+                "token_budget": int(self.token_budget),
+                "step_slo_s": self.step_slo_s,
+                "priced_step_s_at_budget":
+                    float(self.priced_step_s(self.token_budget))}
 
     def admit(self, queue: List[Request], n_active: int,
               now: float) -> AdmissionDecision:

@@ -44,15 +44,18 @@ Per-request outputs equal the colocated
 :class:`~repro_torch.serving.engine_loop.EngineLoop`'s: the migrated
 snapshot is exact and the per-slot step math is engine-independent.
 
-Not here yet: speculative decoding on the decode engine (ROADMAP §1 item
-5), and the watchdog's mid-run re-placement with live migration of decode
-slots (item 6); the options that ask for them raise.
+With a :class:`~repro_torch.serving.speculative.SpecPlan` the decode engine
+speculates (a draft engine beside it proposes, the decode engine verifies
+k+1 positions per round); prefill has no decode-phase slots.  Not here yet:
+the watchdog's mid-run re-placement with live migration of decode slots
+(ROADMAP §1 item 6), which speculation would pin anyway.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..core import device_models
@@ -68,6 +71,7 @@ from .engine_loop import (SlotEngine, snapshot_ready, snapshot_wait,
                           trace_phase_flip, wire_pool_events)
 from .kv_pool import KVPool
 from .request import Request, RequestState
+from .speculative import SpecPlan, SpeculativeDecoder, spec_dispatch
 
 # double-buffering bound: at most this many dispatched-but-unadopted
 # hand-offs ride in flight before the next dispatch blocks on the oldest
@@ -177,6 +181,7 @@ class DisaggregatedEngineLoop:
     passes carries slots onto the decode engine.  ``device`` defaults to
     the card (each engine's steps replay its own CUDA graph there unless
     ``cuda_graph=False``); ``assignment`` places each phase instead.
+    ``plan`` runs speculative decoding on the decode engine.
     """
 
     def __init__(self, cfg: T.ModelConfig, params, *, n_prefill_slots: int,
@@ -193,14 +198,10 @@ class DisaggregatedEngineLoop:
                  assignment: Optional[DeviceAssignment] = None,
                  async_handoff: bool = True,
                  prefix_sharing: bool = False,
-                 plan=None,
+                 plan: Optional[SpecPlan] = None,
                  propose_override: Optional[Callable] = None,
                  obs: Optional[Observability] = None,
                  device="cuda", cuda_graph: bool = True):
-        if plan is not None or propose_override is not None:
-            raise NotImplementedError(
-                "speculative decoding on the decode engine: not ported "
-                "yet; ROADMAP §1 item 5 (speculative decoding) ports it")
         if any(t != "attn" for t in cfg.layer_types()):
             raise NotImplementedError(
                 f"{cfg.name}: layer types "
@@ -254,6 +255,12 @@ class DisaggregatedEngineLoop:
         self._decode_dev = (decode_device
                             or device_models.get(decode_device_name))
         self._handoff_link_bw = handoff_link_bw
+        # speculative decoding rides the decode engine only (prefill has no
+        # decode-phase slots); the draft's cache is pinned to that engine
+        self.spec = (SpeculativeDecoder(self.decode, plan,
+                                        propose_override=propose_override,
+                                        target_params=params)
+                     if plan is not None else None)
         self._async_handoff = async_handoff
         self.handoff = HandoffLedger(registry=self.obs.registry)
         # prefill-complete requests awaiting migration (reset per run)
@@ -264,6 +271,8 @@ class DisaggregatedEngineLoop:
     def warmup(self) -> None:
         self.prefill.warmup()
         self.decode.warmup()
+        if self.spec is not None:
+            self.spec.warmup()
 
     @property
     def batchers(self):
@@ -350,6 +359,11 @@ class DisaggregatedEngineLoop:
         req = ph.req
         self.decode.adopt(req, ph.state, steps_total=ph.steps_total,
                           skip_blocks=ph.skip_blocks)
+        if self.spec is not None:
+            # fresh draft mirror for the adopted slot; the draft replays the
+            # committed chain from the imported prompt and output buffers at
+            # its first speculative round
+            self.spec.reset_slot(req.slot)
         # carry the KV-write accounting into the decode pool's ledger
         # (the lease already counts its shared tokens as written)
         self.decode.pool.note_write(
@@ -458,10 +472,24 @@ class DisaggregatedEngineLoop:
         # prefill slots are active but not burstable
         tracer = self.obs.tracer
         n = 0
-        for eng in (self.prefill, self.decode):
+        for eng, batcher in ((self.prefill, self.prefill_batcher),
+                             (self.decode, self.decode_batcher)):
             mask = eng.active & (eng.steps_done < eng.steps_total)
             if not mask.any():
                 continue
+            if (eng is self.decode and self.spec is not None
+                    and self.spec.enabled):
+                rem = eng.steps_total - eng.steps_done
+                if (rem[mask] >= self.spec.plan.k).all():
+                    # every burstable decode slot clears the page-lease
+                    # gate: one speculative round instead of a plain burst
+                    plens = np.array([0 if r is None else r.prompt_len
+                                      for r in eng.slots], np.int64)
+                    n += spec_dispatch(
+                        self.spec, eng, eng.pool, batcher, self.obs,
+                        mask=mask, pos=plens + eng.steps_done, rem=rem,
+                        budget=None if budget is None else budget - n)
+                    continue
             remaining = (eng.steps_total - eng.steps_done)[mask]
             burst = burst_size(
                 int(remaining.min()), throttle=throttle,

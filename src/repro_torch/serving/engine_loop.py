@@ -123,6 +123,41 @@ def trace_completion(tracer, req) -> None:
                                        else req.t_done - req.arrival)})
 
 
+def capture_graph(fn: Callable[[], None], device, warmup_steps: int):
+    """Capture ``fn``, a step that updates static buffers in place, into a
+    CUDA graph after ``warmup_steps`` eager calls on the capture stream
+    (they meet first-use costs outside the graph and launch their kernels
+    like any call).  A capture that fails raises.  Returns the graph and
+    the launches one replay makes, per kernel wrapper: capture records the
+    kernels' launches without running them, so the counts move to the
+    replays (:func:`replay_graph`)."""
+    current = torch.cuda.current_stream(device)
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(current)
+    with torch.no_grad():
+        with torch.cuda.stream(stream):
+            for _ in range(warmup_steps):
+                fn()
+        current.wait_stream(stream)
+        before = [w.launches for w in WRAPPERS]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            fn()
+    launches = [(w, w.launches - n) for w, n in zip(WRAPPERS, before)]
+    for w, n in zip(WRAPPERS, before):
+        w.launches = n
+    return graph, launches
+
+
+def replay_graph(graph, launches, n: int = 1) -> None:
+    """Replay a graph of :func:`capture_graph` ``n`` times on the current
+    stream and count its kernels' launches."""
+    for _ in range(n):
+        graph.replay()
+    for w, k in launches:
+        w.launches += k * n
+
+
 class SlotEngine:
     """Device-resident slot state + the burst machinery for one engine.
 
@@ -280,25 +315,8 @@ class SlotEngine:
         if not self.cuda_graph or self._graph is not None:
             return
         self._active.zero_()
-        current = torch.cuda.current_stream(self.device)
-        stream = torch.cuda.Stream(self.device)
-        stream.wait_stream(current)
-        with torch.no_grad():
-            with torch.cuda.stream(stream):
-                for _ in range(self.WARMUP_STEPS):
-                    self._step()
-            current.wait_stream(stream)
-            before = [fn.launches for fn in WRAPPERS]
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=stream):
-                self._step()
-        # capture records the kernels' launches without running them: the
-        # counts move to the replays
-        self._graph_launches = [(fn, fn.launches - n)
-                                for fn, n in zip(WRAPPERS, before)]
-        for fn, n in zip(WRAPPERS, before):
-            fn.launches = n
-        self._graph = graph
+        self._graph, self._graph_launches = capture_graph(
+            self._step, self.device, self.WARMUP_STEPS)
 
     def dispatch(self, burst: int, active_np: np.ndarray) -> None:
         """Queue ``burst`` steps over the slots ``active_np`` marks, without
@@ -309,10 +327,7 @@ class SlotEngine:
             self.warmup()
         self._active.copy_(torch.from_numpy(np.array(active_np, bool)))
         if self._graph is not None:
-            for _ in range(burst):
-                self._graph.replay()
-            for fn, n in self._graph_launches:
-                fn.launches += n * burst
+            replay_graph(self._graph, self._graph_launches, burst)
         else:
             with torch.no_grad():
                 for _ in range(burst):
@@ -634,7 +649,7 @@ class EngineLoop:
         return False                     # only pending arrivals throttle
 
     def admit(self, queue: List[Request], now: float,
-              metrics: ServeMetrics) -> None:
+              metrics: ServeMetrics):
         decision = self.batcher.admit(queue, self.engine.n_active, now)
         metrics.drop(len(decision.dropped))
         for req in decision.admitted:
@@ -649,6 +664,7 @@ class EngineLoop:
                              + req.max_new_tokens - 1))
         trace_admission(self.obs, self.batcher, decision,
                         self.engine.n_active)
+        return decision
 
     def dispatch(self, throttle: bool, budget: Optional[int]) -> int:
         # burst: dispatch steps to the next completion boundary without

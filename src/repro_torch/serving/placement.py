@@ -16,19 +16,20 @@ The JAX package's ``serving/placement.py``, priced to the same floats.
 ``price="measured"`` swaps each *buildable* engine's analytic model for one
 calibrated from the profile cache (:mod:`repro_torch.profiling`) when the
 cache holds measurements for it on this device, degrading per-engine to
-analytic otherwise.  ``choose_speculation`` comes with speculative decoding
-(ROADMAP §1 item 5).
+analytic otherwise.  ``choose_speculation`` prices draft-model speculative
+decoding against plain decode the same way.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
 
+from ..core import cost_model
 from ..core.cost_model import TransferCost, layer_cost, transfer_cost
 from ..core.engines import PLACEMENT_ENGINES, ExecutionEngine
 from ..core.layer_model import NetworkSpec
 from ..models.transformer import ModelConfig
-from .batcher import phase_network_spec
+from .batcher import phase_network_spec, step_time_model
 
 OBJECTIVES = ("latency", "energy", "edp", "perf_density")
 
@@ -333,3 +334,75 @@ def place_phases(
                                s.prefill.engine, s.decode.engine))
     return PlacementDecision(objective=objective, pricing=price,
                              best=scores[0], ranked=tuple(scores))
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding: whether, with which draft, and how deep
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class SpeculationDecision:
+    """Outcome of pricing draft-model speculation against plain decode.
+
+    Per-committed-token wall times at the given decode shape; ``use`` is
+    True when the best (draft, k) candidate prices below plain decode.
+    """
+    use: bool
+    draft: str
+    k: int                       # best candidate depth (even when not used)
+    acceptance: float            # the alpha the decision priced on
+    plain_step_s: float          # plain decode, per token
+    spec_step_s: float           # best speculative candidate, per token
+    table: Tuple[Tuple[int, float], ...]   # (k, per-token s) per candidate
+
+    @property
+    def projected_speedup(self) -> float:
+        return (self.plain_step_s / self.spec_step_s
+                if self.spec_step_s > 0 else float("inf"))
+
+    def summary(self) -> Dict:
+        """JSON-safe decision record (trace / ServeReport)."""
+        return {"use": self.use, "draft": self.draft, "k": self.k,
+                "acceptance": self.acceptance,
+                "plain_step_s": self.plain_step_s,
+                "spec_step_s": self.spec_step_s,
+                "projected_speedup": self.projected_speedup,
+                "table": [[k, t] for k, t in self.table]}
+
+
+def choose_speculation(target_cfg: ModelConfig, draft_cfg: ModelConfig, *,
+                       kv_len: int, n_tokens: int, acceptance: float,
+                       device_name: str = "nvidia-h100",
+                       target_device=None, draft_device=None,
+                       k_candidates: Sequence[int] = (1, 2, 3, 4),
+                       draft_name: str = "draft") -> SpeculationDecision:
+    """Price speculative decoding against plain decode and pick the depth.
+
+    The paper's trade-off analysis applied to the decode hot path: one
+    plain step commits ``n_tokens`` tokens (one per slot) in ``t_plain``;
+    one speculative round spends k+1 draft steps plus a single
+    (k+1)-position verify step on the target and commits
+    ``E[c] * n_tokens`` tokens.  The verify step is priced as a target step
+    carrying ``n_tokens * (k+1)`` tokens (batch scaling amortizes the
+    weight reads the way the multi-position step does).  ``acceptance``
+    comes from the profile cache
+    (:func:`repro_torch.profiling.cached_acceptance`), a prior, or the
+    acceptance tracker's online EWMA; ``target_device``/``draft_device``
+    override the registry lookup (calibrated or drift-scaled models).
+    """
+    t_plain = step_time_model(target_cfg, kv_len, n_tokens,
+                              device_name, device=target_device)
+    t_draft = step_time_model(draft_cfg, kv_len, n_tokens,
+                              device_name, device=draft_device)
+    table = []
+    for k in k_candidates:
+        t_verify = step_time_model(target_cfg, kv_len,
+                                   n_tokens * (k + 1),
+                                   device_name, device=target_device)
+        e = cost_model.expected_tokens_per_round(acceptance, k)
+        per_tok = ((k + 1) * t_draft + t_verify) / (e * n_tokens)
+        table.append((int(k), per_tok))
+    best_k, best_t = min(table, key=lambda kt: kt[1])
+    return SpeculationDecision(
+        use=best_t < t_plain / n_tokens, draft=draft_name, k=best_k,
+        acceptance=float(acceptance), plain_step_s=t_plain / n_tokens,
+        spec_step_s=best_t, table=tuple(table))

@@ -36,7 +36,8 @@ from repro_torch.core import device_models as pdm
 from repro_torch.models import transformer as PT
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.obs import Observability, Tracer
-from repro_torch.serving import EngineLoop, KVPool, Request, SlotEngine
+from repro_torch.serving import (EngineLoop, KVPool, Request, SlotEngine,
+                                 SpecPlan)
 from repro_torch.serving import api as papi
 from repro_torch.serving.disagg import (MAX_PENDING_HANDOFFS,
                                         DisaggregatedEngineLoop,
@@ -206,10 +207,16 @@ def test_engines_share_one_set_of_weights_and_trace_the_handoffs(weights):
 
 
 def test_unported_parts_raise_with_their_roadmap_item(weights):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        DisaggregatedEngineLoop(PCFG, weights[1], n_prefill_slots=1,
-                                n_decode_slots=1, max_seq=8, plan=object(),
-                                device="cpu")
+    """Parts whose modules are not ported raise, naming their ROADMAP item.
+    The name is historical for ``plan=``: speculative decoding on the decode
+    engine is ported, so a plan now builds the decoder beside it."""
+    plan = SpecPlan(draft_cfg=PCFG, draft_params=weights[1], k=2)
+    spec = DisaggregatedEngineLoop(PCFG, weights[1], n_prefill_slots=1,
+                                   n_decode_slots=1, max_seq=8, plan=plan,
+                                   device="cpu")
+    assert spec.spec.eng is spec.decode and spec.spec.plan is plan
+    # a self-draft shares the decode engine's weights
+    assert spec.spec.draft.params["embed"] is spec.decode.params["embed"]
     hybrid = dataclasses.replace(PCFG, block_pattern=("rec", "attn"))
     with pytest.raises(NotImplementedError, match="item 7"):
         DisaggregatedEngineLoop(hybrid, weights[1], n_prefill_slots=1,

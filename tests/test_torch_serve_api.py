@@ -7,7 +7,7 @@
   tests/test_api.py's cases, copied, and a few hundred random option sets
   run through both.  Valid options whose modules are not ported raise
   ``NotImplementedError`` in ``serve``, naming their ROADMAP item; the
-  placement options (item 4, ported) serve.
+  placement options (item 4) and ``--speculate`` (item 5), ported, serve.
 * ``serve(..., device="cpu")`` at float32 with the same weights gives the
   JAX package's ``serve()`` tokens, continuous (paged and dense) and static;
   its ``--trace`` output passes benchmarks/check_regression.py's gate, and
@@ -236,12 +236,15 @@ def test_validate_decides_as_the_reference_on_random_options():
 def test_unported_options_raise_with_their_roadmap_item(overrides, item,
                                                        tmp_path, monkeypatch):
     """Options whose modules are not ported raise, naming their ROADMAP
-    item.  The name is historical for the ``item 4`` cases: placement and
-    disaggregation are ported, so those options now serve every request,
-    with the colocated run's tokens (placement changes no token)."""
+    item.  The name is historical for the ``item 4`` and ``item 5`` cases:
+    placement, disaggregation and speculative decoding are ported, so those
+    options now serve every request, with the colocated run's tokens
+    (neither placement nor speculation changes a token; ``--speculate``
+    alone prices the default self-draft worse than plain decode and serves
+    plain)."""
     options = _opts(papi, **overrides)
     options.validate()                       # valid, as in the JAX package
-    if item != "item 4":
+    if item not in ("item 4", "item 5"):
         with pytest.raises(NotImplementedError, match=item):
             papi.serve(options, device="cpu")
         return
@@ -258,6 +261,9 @@ def test_unported_options_raise_with_their_roadmap_item(overrides, item,
         assert report.placement["mode"] == "disagg"
     if "measure_link_bw" in overrides:
         assert (tmp_path / "build" / "profile_cache_torch.json").exists()
+    if overrides.get("speculate"):
+        assert report.speculation["priced_fallback"] is True
+        assert colocated.speculation is None
 
 
 def test_serve_defaults_to_the_card(monkeypatch):
@@ -404,8 +410,16 @@ def test_cli_serves_on_the_cpu_and_exits_on_bad_options(float32_smoke,
     with pytest.raises(SystemExit) as exc:
         pserve_cli.main(["--device", "cpu", "--shared-frac", "0.5"])
     assert exc.value.code == 2
-    with pytest.raises(SystemExit, match="item 5"):
-        pserve_cli.main(["--device", "cpu", "--speculate"])
+    # --speculate is ported: it serves (here priced worse than plain
+    # decode, so plain); an unported flag exits naming its ROADMAP item
+    pserve_cli.main(["--device", "cpu", "--speculate", "--requests", "2",
+                     "--prompt-len", "4", "--gen-len", "4", "--rate", "1e9",
+                     "--slots", "2"])
+    out = capsys.readouterr().out
+    assert "requests_done: 2" in out
+    assert "[serve] speculation: prices worse than plain decode" in out
+    with pytest.raises(SystemExit, match="item 6"):
+        pserve_cli.main(["--device", "cpu", "--watchdog"])
 
 
 # ---------------------------------------------------------------------
