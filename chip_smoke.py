@@ -95,7 +95,11 @@ Phases, each of which raises (and so exits nonzero) on a failed check:
              same requests with "ref" as well and reports tok/s, TTFT p50
              and the greedy-token agreement of the two runs (reported, not
              gated: the kernel is close to the plain version, not bitwise
-             equal).
+             equal).  Under "ref", the JAX package's own impl, the dense
+             layout's greedy tokens must equal the paged layout's bit for
+             bit; forced speculation (self-draft, k 2) is held against plain
+             decode and, with a row-count probe of qwen2's products, reported
+             (spec_vs_plain).
 8. serve-entry — repro_torch.serving.api.serve(), the entry point behind
              `python -m repro_torch.launch.serve`, on the full-width model
              (scale "full": all 28 layers, weights from seed 0), 8 requests
@@ -153,9 +157,28 @@ Phases, each of which raises (and so exits nonzero) on a failed check:
              and spec-eager, in turns, median of three, beside the card's
              name and power limit.
 
-Every main-path phase (4, 4b, 6, 7, 8, 9, 10) sets every kernel's launch count
-to 0 just before it and reads them all just after (4b's count covers its
-profile and its plan's run).  The last line is {"ok": true,
+11. families — the MoE and recurrent families.  phi3.5-MoE at full width,
+             8 of its 32 layers (PHI_LAYERS; random weights from seed 0,
+             bf16 compute): phase 6's prefill on the flash kernel (head dim
+             128, GQA group 4) against "chunked", phase 7's serving on the
+             paged kernel (launch count, one decode step against "ref",
+             paged == dense under "ref" bitwise), graph == eager bitwise,
+             tok/s and TTFT p50, one replayed step's device time split into
+             the expert products (timed alone at the step's shape), the paged
+             kernel and the rest, and peak memory; phase 5 holds both kernels
+             at its head shapes ("phi-" cases).  falcon-mamba-7b (64 layers)
+             and recurrentgemma-2b (26 layers) at full scale: one forward of
+             two scan chunks (falcon), then serve() with phase 8's workload,
+             its weights built once: falcon on the paged layout (graph and
+             eager) and the dense layout, recurrentgemma (windowed) on the
+             dense layout (graph and eager), every run's tokens bitwise equal
+             to the first's; tok/s and peak memory.  The flash and paged
+             launches of the phase must both be above 0.
+
+Every main-path phase (4, 4b, 6, 7, 8, 9, 10, 11) sets every kernel's launch
+count to 0 just before it and reads them all just after (4b's count covers
+its profile and its plan's run; 11 sums its runs, each counted so).  The
+last line is {"ok": true,
 "device": {...}}; the line before it holds the card's name and power limit,
 and the one before that the per-kernel JSON.  For the AlexNet kernels its
 times are summed over the layers a kernel runs in one forward of the kernel
@@ -164,7 +187,8 @@ plan at batch 64 and its launches are those of phase 4 (per plan under
 the 28 layers of one prefill forward (flash) or one decode step of the serve
 phase (paged), at the shapes those phases give them, and the launches are
 those of phase 6 (flash) and 8 (paged).  "launches_by_phase" gives every
-kernel's count in every main-path phase, phase 10's under "speculation".
+kernel's count in every main-path phase, phase 10's under "speculation",
+phase 11's under "families".
 Without a card, or outside a checkout of the repository, it exits nonzero
 before printing any result.  Imports nothing of JAX or of the JAX package.
 """
@@ -206,6 +230,10 @@ KERNEL_OF = {"conv": "conv2d", "norm": "lrn", "pool": "pool", "fc": "matmul"}
 PROFILE_WARMUP, PROFILE_REPEATS = 3, 15     # the measured phase's profile
 GEMM_KERNELS = ("matmul", "conv2d")
 PREFILL_TOKENS = 512
+# phase 11: phi3.5-MoE at full width cut to 8 of its 32 layers (fp32
+# weights ~42 GB and their bf16 copy ~21 GB on the 80 GB card), its
+# (query, kv) heads
+PHI_LAYERS, PHI_HEADS = 8, (32, 8)
 QUEUE_SLEEP_CYCLES = 20_000_000     # ~10 ms at the H100's 1.98 GHz boost
 FLUSH_BYTES = 256 << 20             # written between calls to empty the L2
 REPLACES = {
@@ -908,7 +936,8 @@ def lm_kernel_cases(torch, F, ref, kern, rng):
     """(kernel, label, dtype, main_path, flops, bytes, kernel_fn, plain_fn,
     library_fn) for the attention kernels at qwen2-1.5B's head shapes in
     bf16, and flash's edge cases; main_path marks the shapes the prefill
-    and serve phases give them.  Operations and bytes count what these
+    and serve phases give them; the "phi-" cases are phase 11's
+    (phi3.5-MoE's heads).  Operations and bytes count what these
     inputs need: the keys each query attends (causal, and for paged only
     positions <= pos), each input read once and the output written once."""
     hq, hk, d = 12, 2, 128
@@ -922,7 +951,8 @@ def lm_kernel_cases(torch, F, ref, kern, rng):
 
     cases = []
 
-    def paged_case(label, pos_list, max_seq, main):
+    def paged_case(label, pos_list, max_seq, main, heads=(hq, hk)):
+        hq, hk = heads
         b, nb = len(pos_list), -(-max_seq // PAGE)
         tb = b * nb + 1                                 # + the trash page
         q, ka, va = t(b, hq, 1, d), t(tb, hk, PAGE, d), t(tb, hk, PAGE, d)
@@ -959,7 +989,8 @@ def lm_kernel_cases(torch, F, ref, kern, rng):
             library))
 
     def flash_case(label, b, s, main, tk=None, hd=d, window=None,
-                   dtype="bfloat16", q_offset=None):
+                   dtype="bfloat16", q_offset=None, heads=(hq, hk)):
+        hq, hk = heads
         tk = s if tk is None else tk
         q = t(b, hq, s, hd, dtype=dtype)
         k, v = t(b, hk, tk, hd, dtype=dtype), t(b, hk, tk, hd, dtype=dtype)
@@ -1009,6 +1040,10 @@ def lm_kernel_cases(torch, F, ref, kern, rng):
     flash_case("window64-1x512", 1, 512, False, window=64)
     flash_case("d64-1x512", 1, 512, False, hd=64)
     flash_case("fp32-1x100-d64", 1, 100, False, hd=64, dtype="float32")
+    # phase 11's shapes: phi3.5-MoE's 32 query heads over 8 kv heads
+    paged_case("phi-8x160", [0, 15, 16, 47, 90, 128, 159, 0], serve_seq,
+               False, heads=PHI_HEADS)
+    flash_case("phi-1x512", 1, PREFILL_TOKENS, False, heads=PHI_HEADS)
     return cases
 
 
@@ -1142,7 +1177,47 @@ def _rel(a, b) -> float:
             / b.float().abs().max()).item()
 
 
-def phase_prefill(torch, kern, cfg, params):
+class ShadowAttention:
+    """Inside the block, each kernel call of the model's attention (the
+    flash kernel in ``forward``, the paged kernel in a decode step) is also
+    computed by the plain impl ("chunked", "ref") on the same inputs, and
+    the error relative to the plain output's largest magnitude is kept in
+    ``rels``; the model goes on with the kernel's output.  This holds each
+    kernel call at the model's own inputs where a routed model's logits
+    cannot be compared: an MoE router with random weights turns bf16
+    rounding into other experts."""
+
+    def __init__(self, torch):
+        from repro_torch.models import attention as attn_lib
+        self.lib, self.rels = attn_lib, []
+
+    def __enter__(self):
+        lib = self.lib
+        self.attend, self.paged = lib.attend, lib.paged_decode_attention
+
+        def attend(q, k, v, *, impl="dot", **kw):
+            out = self.attend(q, k, v, impl=impl, **kw)
+            if impl == "hopper":
+                self.rels.append(_rel(out, self.attend(q, k, v,
+                                                       impl="chunked", **kw)))
+            return out
+
+        def paged(*args, impl="ref", **kw):
+            out = self.paged(*args, impl=impl, **kw)
+            if impl == "hopper":
+                self.rels.append(_rel(out, self.paged(*args, impl="ref",
+                                                      **kw)))
+            return out
+
+        lib.attend, lib.paged_decode_attention = attend, paged
+        return self
+
+    def __exit__(self, *exc):
+        self.lib.attend = self.attend
+        self.lib.paged_decode_attention = self.paged
+
+
+def phase_prefill(torch, kern, cfg, params, tag="prefill"):
     """forward() of the full-width model on one prompt, flash kernel on."""
     import dataclasses
     from repro_torch.models import transformer as T
@@ -1170,14 +1245,21 @@ def phase_prefill(torch, kern, cfg, params):
         dot, _ = T.forward(params, dataclasses.replace(
             cfg, attention_impl="dot"), tokens)
         device_profile(torch, lambda: T.forward(params, hopper, tokens),
-                       "prefill")
+                       tag)
+        with ShadowAttention(torch) as shadow:
+            T.forward(params, hopper, tokens)
     plain_rel = _rel(dot, want)
     rel = _rel(logits, want)
     agree = (logits.argmax(-1) == want.argmax(-1)).float().mean().item()
-    print(f"[prefill] qwen2-1.5b 1x{PREFILL_TOKENS} hopper ms={ms:.3f} "
+    routed = cfg.n_experts > 0
+    print(f"[{tag}] {cfg.name} 1x{PREFILL_TOKENS} hopper ms={ms:.3f} "
           f"chunked_ms={plain_ms:.3f} logits={tuple(logits.shape)} "
-          f"max_rel_err={rel:.3e} (dot vs chunked: {plain_rel:.3e}) "
-          f"argmax_agreement={agree:.4f} "
+          f"max_rel_err={rel:.3e} (dot vs chunked: {plain_rel:.3e}"
+          + ("; not gated: the MoE routes the two plain impls' rounding "
+             "to other experts" if routed else "")
+          + f") argmax_agreement={agree:.4f} each layer's flash call "
+          f"against chunked on its inputs: max_rel_err="
+          f"{max(shadow.rels):.3e} over {len(shadow.rels)} calls "
           f"launches={launches}", flush=True)
     check(logits.shape == (1, PREFILL_TOKENS, cfg.vocab)
           and bool(torch.isfinite(logits).all()),
@@ -1187,14 +1269,19 @@ def phase_prefill(torch, kern, cfg, params):
           and sum(launches.values()) == cfg.n_layers,
           f"prefill launches {launches}, expected flash_attention x "
           f"{cfg.n_layers} and nothing else")
-    check(rel <= PREFILL_RTOL, f"prefill logits differ from the chunked "
-          f"impl by {rel:.3e} of their largest magnitude")
+    check(routed or rel <= PREFILL_RTOL, f"prefill logits differ from "
+          f"the chunked impl by {rel:.3e} of their largest magnitude")
+    check(len(shadow.rels) == cfg.layer_types().count("attn")
+          and max(shadow.rels) <= PREFILL_RTOL, f"a flash call differs from "
+          f"chunked on its inputs by {max(shadow.rels):.3e}")
     return launches
 
 
-def phase_serve(torch, kern, cfg, params):
+def phase_serve(torch, kern, cfg, params, tag="serve", speculate=True):
     """EngineLoop.run on the paged kernel, one decode step held against
-    the ref impl, and the same requests served on the ref impl."""
+    the ref impl, and the same requests served on the ref impl, on the
+    paged and the dense layout (and, with ``speculate``, with forced
+    speculation: identity_gates)."""
     import dataclasses
     from repro_torch.models import transformer as T
     from repro_torch.serving import EngineLoop, SlotEngine
@@ -1210,10 +1297,10 @@ def phase_serve(torch, kern, cfg, params):
                                   prompt_lens=(PROMPT,), gen_lens=(GEN,),
                                   seed=3)
 
-    def loop_for(c):
+    def loop_for(c, loop_cls=EngineLoop, **kw):
         """A loop with its step captured (warmup), ready to run."""
-        loop = EngineLoop(c, params, n_slots=SLOTS, max_seq=max_seq,
-                          block_size=PAGE)
+        loop = loop_cls(c, params, n_slots=SLOTS, max_seq=max_seq,
+                        block_size=PAGE, **kw)
         loop.warmup()
         torch.cuda.synchronize()
         return loop
@@ -1235,7 +1322,7 @@ def phase_serve(torch, kern, cfg, params):
     summary = serve(loop, reqs)
     launches = {name: fn.launches for name, fn in kern.items()}
     steps = summary["steps"]
-    print(f"[serve] qwen2-1.5b hopper requests_done="
+    print(f"[{tag}] {cfg.name} hopper requests_done="
           f"{summary['requests_done']} steps={steps} tok/s="
           f"{summary['tok_per_s']:.1f} ttft_p50_s={summary['ttft_p50_s']:.4f}"
           f" tpot_p50_s={summary['tpot_p50_s']:.5f} elapsed_s="
@@ -1252,10 +1339,12 @@ def phase_serve(torch, kern, cfg, params):
     ref_summary = serve(loop_for(ref_cfg), ref_reqs)
     agree = np.mean([np.mean(np.asarray(a.output) == np.asarray(b.output))
                      for a, b in zip(reqs, ref_reqs)])
-    print(f"[serve] qwen2-1.5b ref tok/s={ref_summary['tok_per_s']:.1f} "
+    print(f"[{tag}] {cfg.name} ref tok/s={ref_summary['tok_per_s']:.1f} "
           f"ttft_p50_s={ref_summary['ttft_p50_s']:.4f} elapsed_s="
           f"{ref_summary['elapsed_s']:.3f}; greedy tokens equal to the "
           f"hopper run: {agree:.4f} (reported, not gated)", flush=True)
+    identity_gates(torch, cfg, params, ref_reqs, workload, loop_for, serve,
+                   tag, speculate)
 
     # one decode step, kernel against plain, from a live mid-decode state
     pool = KVPool(SLOTS, max_seq, block_size=PAGE)
@@ -1268,25 +1357,231 @@ def phase_serve(torch, kern, cfg, params):
     tokens = torch.randint(0, cfg.vocab, (SLOTS, 1), device="cuda",
                            generator=torch.Generator("cuda").manual_seed(4))
     active = torch.tensor(eng.active, device="cuda")
-    outs = []
+    outs, shadow = [], ShadowAttention(torch)
     with torch.no_grad():
         for c in (hopper, ref_cfg):
             cache = {"layers": [{k: a.clone() for k, a in layer.items()}
                                 for layer in eng.cache["layers"]],
                      "pos": eng.cache["pos"].clone(),
                      "block_tables": eng.cache["block_tables"].clone()}
-            outs.append(T.decode_step_slots_paged(
-                eng.params, c, cache, tokens, active, max_seq=max_seq)[0])
+            with shadow:                 # records the hopper step's calls
+                outs.append(T.decode_step_slots_paged(
+                    eng.params, c, cache, tokens, active,
+                    max_seq=max_seq)[0])
         left = int((eng.steps_total - eng.steps_done)[eng.active].min())
         device_profile(torch, lambda: eng.dispatch(min(8, left), eng.active),
-                       "serve")
+                       tag)
     live = active.nonzero().flatten()
     rel = _rel(outs[0][live], outs[1][live])
-    print(f"[serve] one decode step at pos {mid}: hopper vs ref "
-          f"max_rel_err={rel:.3e}", flush=True)
-    check(rel <= DECODE_RTOL, f"decode-step logits differ from the ref impl "
-          f"by {rel:.3e} of their largest magnitude")
+    routed = cfg.n_experts > 0
+    print(f"[{tag}] one decode step at pos {mid}: hopper vs ref "
+          f"max_rel_err={rel:.3e}"
+          + (" (not gated: the MoE routes rounding to other experts)"
+             if routed else "")
+          + f"; each layer's paged call against ref on its inputs: "
+          f"max_rel_err={max(shadow.rels):.3e} over {len(shadow.rels)} "
+          "calls", flush=True)
+    check(routed or rel <= DECODE_RTOL, f"decode-step logits differ from "
+          f"the ref impl by {rel:.3e} of their largest magnitude")
+    check(len(shadow.rels) == cfg.n_layers
+          and max(shadow.rels) <= DECODE_RTOL, f"a paged call differs from "
+          f"ref on its inputs by {max(shadow.rels):.3e}")
     return launches, summary, ref_summary
+
+
+def _token_agreement(a, b) -> float:
+    """Share of positions where two runs' greedy tokens are equal."""
+    return float(np.mean([np.mean(np.asarray(x.output) == np.asarray(y.output))
+                          for x, y in zip(a, b)]))
+
+
+def identity_gates(torch, cfg, params, ref_reqs, workload, loop_for, serve,
+                   tag, speculate):
+    """The JAX package's serving identities under its own impl ("ref"), on
+    the card: the dense layout's tokens equal the paged layout's bit for
+    bit (gated), and forced speculation (self-draft, k 2) against plain
+    decode (see spec_vs_plain)."""
+    import dataclasses
+    from repro_torch.serving import SpecPlan, SpeculativeEngineLoop
+    from repro_torch.serving.request import synthetic_workload
+
+    ref_cfg = dataclasses.replace(cfg, paged_attention_impl="ref")
+    dense_reqs = workload()
+    serve(loop_for(ref_cfg, kv_layout="dense"), dense_reqs)
+    same = [r.output for r in ref_reqs] == [r.output for r in dense_reqs]
+    agree = _token_agreement(ref_reqs, dense_reqs)
+    print(f"[{tag}] {cfg.name} ref: dense-layout tokens bitwise equal to the "
+          f"paged layout's: {same} ({agree:.4f} of tokens)", flush=True)
+    check(same, "under the ref impl the dense layout's greedy tokens differ "
+          "from the paged layout's")
+    if not speculate:
+        return
+
+    def mixed():
+        """The serve CLI's workload (phase 8's): speculation engages only
+        once bursts stop at staggered completions."""
+        return synthetic_workload(SERVE_ENTRY["requests"], rate=1e9,
+                                  vocab=cfg.vocab,
+                                  prompt_lens=(PROMPT // 2, PROMPT),
+                                  gen_lens=(GEN // 8, GEN // 2, GEN), seed=1)
+
+    plain_reqs, spec_reqs = mixed(), mixed()
+    serve(loop_for(ref_cfg), plain_reqs)
+    loop = loop_for(ref_cfg, plan=SpecPlan(ref_cfg, params, k=2,
+                                           forced=True),
+                    loop_cls=SpeculativeEngineLoop)
+    summary = serve(loop, spec_reqs)
+    spec_vs_plain(torch, cfg, params, plain_reqs, spec_reqs, loop, summary)
+
+
+def spec_vs_plain(torch, cfg, params, plain_reqs, spec_reqs, loop,
+                  summary) -> None:
+    """Forced speculation under ref against plain decode under ref, the
+    agreement reported, not gated (ROADMAP §3 logs the fault).  Where the
+    tokens differ: for each of a layer's products and the head (qwen2's
+    shapes, bf16, random rows), the smallest row count m whose first row
+    differs from the 1-row product, and whether rows 0-7 of a 24-row
+    product equal the 8-row product's (the verify feeds 8 x 3 rows where a
+    plain step feeds 8); then spec_divergence at full depth and, cut to 2
+    layers, by window size."""
+    same = ([r.output for r in plain_reqs]
+            == [r.output for r in spec_reqs])
+    spec = loop.spec
+    print(f"[serve] {cfg.name} ref: forced speculation (self-draft, k 2, "
+          f"{spec.n_rounds} rounds, acceptance {spec.acceptance_rate}) "
+          f"tokens bitwise equal to plain decode: {same} "
+          f"({_token_agreement(plain_reqs, spec_reqs):.4f} of tokens); "
+          f"requests_done={summary['requests_done']}", flush=True)
+    check(summary["requests_done"] == len(spec_reqs) and spec.n_rounds > 0,
+          f"speculation under ref: {summary['requests_done']} requests "
+          f"done, {spec.n_rounds} rounds")
+    if same:
+        return
+    gen = torch.Generator("cuda").manual_seed(8)
+    layer = params["layers"][0]
+    products = (("x@wq", layer["attn"]["wq"]), ("x@wk", layer["attn"]["wk"]),
+                ("o@wo", layer["attn"]["wo"]),
+                ("x@w_gate", layer["mlp"]["w_gate"]),
+                ("h@w_down", layer["mlp"]["w_down"]),
+                ("x@embed.T", params["embed"].T))
+    rows = []
+    for name, w in products:
+        w = w.to(torch.bfloat16)
+        x = torch.randn((24, w.shape[0]), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        one = x[:1] @ w
+        first = next((m for m in range(2, 25)
+                      if not torch.equal((x[:m] @ w)[:1], one)), None)
+        eight = torch.equal((x @ w)[:8], x[:8] @ w)
+        rows.append(f"{name} {tuple(w.shape)}: first m={first}, "
+                    f"24 vs 8 rows equal={eight}")
+    torch.cuda.synchronize()
+    print("[serve] row-count probe (row 0 of an (m, K) @ (K, N) bf16 "
+          "product against the 1-row product): " + "; ".join(rows),
+          flush=True)
+    # the verify's step against sequential steps, op by op: at full depth
+    # for phase 7's shape, then at the model's width cut to 2 layers for
+    # smaller windows (b slots x m tokens), smallest first
+    found = spec_divergence(torch, cfg, params, SLOTS, 3)
+    print(f"[serve] verify ({SLOTS} slots x 3 tokens, ref) against 3 plain "
+          f"steps, "
+          f"first op whose bits differ (op, layer, offset, the verify's "
+          f"operand shape): {found}", flush=True)
+    import dataclasses
+    cut = dataclasses.replace(cfg, n_layers=2)
+    cut_params = dict(params, layers=params["layers"][:2])
+    shapes = {}
+    for b, m in ((1, 2), (2, 2), (1, 3), (4, 2), (8, 2), (8, 3)):
+        shapes[f"{b}x{m}"] = spec_divergence(torch, cut, cut_params, b, m)
+    print(f"[serve] the same at 2 layers by window (slots x tokens): "
+          f"{shapes}", flush=True)
+
+
+# the ops of a layer, in the order a verify step and a plain step call
+# them, that spec_divergence compares (each looked up at call time)
+TRACED_OPS = (("T", "rmsnorm"), ("T", "_project_qkv"), ("T", "apply_rope"),
+              ("attn", "paged_decode_attention_multi"),
+              ("attn", "paged_decode_attention"), ("T", "_merge_heads"),
+              ("T", "swiglu"))
+
+
+def _op_outputs(torch, fn):
+    """Run ``fn`` with TRACED_OPS recording their outputs, in call order:
+    [(op name, tensors)]."""
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import transformer as T
+
+    mods = {"T": T, "attn": attn_lib}
+    saved, calls = {}, []
+    for mod, name in TRACED_OPS:
+        orig = getattr(mods[mod], name)
+        saved[mod, name] = orig
+
+        def rec(*a, _orig=orig, _name=name, **kw):
+            out = _orig(*a, **kw)
+            outs = out if isinstance(out, tuple) else (out,)
+            calls.append((_name.replace("_multi", ""),
+                          [o.detach().clone() for o in outs]))
+            return out
+
+        setattr(mods[mod], name, rec)
+    try:
+        with torch.no_grad():
+            fn()
+    finally:
+        for (mod, name), orig in saved.items():
+            setattr(mods[mod], name, orig)
+    return calls
+
+
+def spec_divergence(torch, cfg, params, b: int, m: int, seed: int = 6):
+    """The verify's m-token step (ref impl) against m sequential plain steps
+    from one live state of ``b`` slots a quarter into decoding, op by op:
+    the first op (TRACED_OPS, in layer order) whose output at some window
+    offset differs in any bit from the plain step's, as (op, layer, offset,
+    the verify's operand shape), or None."""
+    import dataclasses
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import SlotEngine
+    from repro_torch.serving.kv_pool import KVPool
+    from repro_torch.serving.request import synthetic_workload
+
+    ref_cfg = dataclasses.replace(cfg, paged_attention_impl="ref")
+    max_seq = PROMPT + GEN
+    pool = KVPool(b, max_seq, block_size=PAGE)
+    eng = SlotEngine(ref_cfg, params, pool, kv_layout="paged")
+    for r in synthetic_workload(b, rate=1e9, vocab=cfg.vocab,
+                                prompt_lens=(PROMPT,), gen_lens=(GEN,),
+                                seed=seed):
+        r.slot = pool.alloc(r.rid, r.total_tokens)
+        eng.bind(r, steps_total=r.prompt_len + r.max_new_tokens - 1)
+    eng.dispatch(PROMPT + GEN // 4, eng.active)
+    live = torch.tensor(eng.active, device="cuda")
+    window = torch.cat([eng._last_tok[:, None], torch.randint(
+        0, cfg.vocab, (b, m - 1), device="cuda", dtype=torch.int32,
+        generator=torch.Generator("cuda").manual_seed(7))], dim=1)
+
+    def cloned():
+        return {"layers": [{n: a.clone() for n, a in layer.items()}
+                           for layer in eng.cache["layers"]],
+                "pos": eng.cache["pos"].clone(),
+                "block_tables": eng.cache["block_tables"].clone()}
+
+    multi = _op_outputs(torch, lambda: T.decode_multi_step_slots_paged(
+        eng.params, ref_cfg, cloned(), window, live, max_seq=max_seq,
+        advance=False))
+    cache = cloned()
+    steps = [_op_outputs(torch, lambda i=i: T.decode_step_slots_paged(
+        eng.params, ref_cfg, cache, window[:, i:i + 1], live,
+        max_seq=max_seq)) for i in range(m)]
+    per_layer = len(multi) // cfg.n_layers
+    for j, (name, outs) in enumerate(multi):
+        for i in range(m):
+            for x, y in zip(outs, steps[i][j][1]):
+                axis = 2 if x.dim() == 4 else 1
+                if not torch.equal(x.narrow(axis, i, 1), y):
+                    return (name, j // per_layer, i, tuple(x.shape))
+    return None
 
 
 def serve_options(api, **fields):
@@ -1807,6 +2102,257 @@ def phase_speculation(torch, kern, cfg, params, smi: str):
     return launches
 
 
+def _free(torch) -> None:
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def expert_ms(torch, cfg, layer) -> dict:
+    """One decode step's MoE FFN of one layer at the serve shape (8 slots,
+    one token each), timed alone (CUDA events, queued): the whole block
+    (router, scatter, expert products, gather) and its three batched
+    expert products, with their byte bound (every expert's weights read
+    once)."""
+    from repro_torch.models import moe as moe_lib
+
+    args = cfg.moe_args()
+    x = torch.randn((SLOTS, 1, cfg.d_model), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(9)).to(
+        cfg.compute_dtype)
+    cap = moe_lib.capacity(args, 1)
+    xin = torch.randn((args.n_experts, SLOTS * cap, cfg.d_model),
+                      device="cuda").to(cfg.compute_dtype)
+    m = layer["mlp"]
+
+    def products():
+        h = torch.bmm(xin, m["w_gate"]) * torch.bmm(xin, m["w_up"])
+        return torch.bmm(h, m["w_down"])
+
+    weights = sum(m[k].numel() * m[k].element_size()
+                  for k in ("w_gate", "w_up", "w_down"))
+    with torch.no_grad():
+        return {"moe_block_ms": time_ms(torch, lambda: moe_lib.moe_apply(
+                    m, x, args, cfg.compute_dtype), queued=True),
+                "expert_products_ms": time_ms(torch, products, queued=True),
+                "expert_bound_ms": weights / HBM_BW * 1e3}
+
+
+def step_breakdown(torch, cfg, params, smi: str) -> None:
+    """One replayed decode step of the phase-7 workload's shape (7 of 8
+    slots live, a quarter into decoding): its device time by torch.profiler
+    over 8 replays (each replay of the step's CUDA graph), the paged
+    kernel's share, and the MoE expert products
+    and whole MoE blocks timed alone at the step's shape (x the layers)."""
+    import dataclasses
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import SlotEngine
+    from repro_torch.serving.kv_pool import KVPool
+    from repro_torch.serving.request import synthetic_workload
+
+    hopper = dataclasses.replace(cfg, paged_attention_impl="hopper")
+    pool = KVPool(SLOTS, PROMPT + GEN, block_size=PAGE)
+    eng = SlotEngine(hopper, params, pool, kv_layout="paged")
+    for r in synthetic_workload(SLOTS - 1, rate=1e9, vocab=cfg.vocab,
+                                prompt_lens=(PROMPT,), gen_lens=(GEN,),
+                                seed=5):
+        r.slot = pool.alloc(r.rid, r.total_tokens)
+        eng.bind(r, steps_total=r.prompt_len + r.max_new_tokens - 1)
+    eng.dispatch(PROMPT + GEN // 4, eng.active)
+    steps = min(8, int((eng.steps_total - eng.steps_done)[eng.active].min()))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.dispatch(steps, eng.active)
+        torch.cuda.synchronize()
+    step_us = attn_us = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            step_us += ev.self_device_time_total
+            if "paged_attention" in ev.key:
+                attn_us += ev.self_device_time_total
+    step_ms, attn_ms = step_us / steps / 1e3, attn_us / steps / 1e3
+    moe = expert_ms(torch, cfg, eng.params["layers"][0])
+    n = cfg.n_layers
+    experts = moe["expert_products_ms"] * n
+    print(f"[families] {cfg.name} one replayed decode step (8 slots, 7 "
+          f"live, pos {PROMPT + GEN // 4}): device_ms={step_ms:.4f}; "
+          f"expert products {experts:.4f} (alone, x{n} layers; byte bound "
+          f"{moe['expert_bound_ms'] * n:.4f}: every expert's weights read "
+          f"each step), whole MoE blocks {moe['moe_block_ms'] * n:.4f} "
+          f"(alone, x{n}), paged attention kernel {attn_ms:.4f}, the rest "
+          f"{step_ms - experts - attn_ms:.4f} ({smi})", flush=True)
+
+
+def phase_families(torch, kern, smi: str):
+    """11. The MoE and recurrent families: phi3.5-MoE at full width (8 of
+    32 layers) on the flash and paged kernels, falcon-mamba-7b and
+    recurrentgemma-2b at full scale through serve().  Returns the phase's
+    launches by kernel."""
+    import dataclasses
+    from repro_torch.configs import (falcon_mamba_7b, phi35_moe,
+                                     recurrentgemma_2b)
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import api
+
+    total = {name: 0 for name in kern}
+
+    def add(launches):
+        for name, n in launches.items():
+            total[name] += n
+
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    phi = dataclasses.replace(phi35_moe.CONFIG, n_layers=PHI_LAYERS)
+    t0 = time.perf_counter()
+    params = T.compute_params(T.init_params(phi, seed=0), phi)
+    torch.cuda.synchronize()
+    print(f"[families] {phi.name} {PHI_LAYERS} of 32 layers at full width: "
+          f"{T.count_params(phi):,} parameters "
+          f"({T.count_active_params(phi):,} active) from seed 0, bf16 copy "
+          f"in {time.perf_counter() - t0:.1f} s; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    add(phase_prefill(torch, kern, phi, params, tag="families"))
+    launches, summary, _ = phase_serve(torch, kern, phi, params,
+                                       tag="families", speculate=False)
+    add(launches)
+    print(f"[families] {phi.name} serve: tok/s={summary['tok_per_s']:.1f} "
+          f"ttft_p50_s={summary['ttft_p50_s']:.4f} ({smi})", flush=True)
+    graph_equals_eager_engine(torch, kern, phi, params, total)
+    step_breakdown(torch, phi, params, smi)
+    print(f"[families] {phi.name} max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})",
+          flush=True)
+    check(total["flash_attention"] > 0 and total["paged_attention"] > 0,
+          f"{phi.name}: launches {total}, expected flash and paged > 0")
+    del params
+    _free(torch)
+
+    for cfg, layouts in ((falcon_mamba_7b.CONFIG, ("paged", "dense")),
+                         (recurrentgemma_2b.CONFIG, ("dense",))):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = T.compute_params(T.init_params(cfg, seed=0), cfg)
+        torch.cuda.synchronize()
+        print(f"[families] {cfg.name}: {T.count_params(cfg):,} parameters "
+              f"from seed 0, bf16 copy in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        if "mamba" in cfg.layer_types():
+            forward_ms(torch, cfg, params, smi)
+        serve_family(torch, kern, api, cfg, params, layouts, total, smi)
+        del params
+        _free(torch)
+    print(f"[families] launches {total}", flush=True)
+    return total
+
+
+def graph_equals_eager_engine(torch, kern, cfg, params, total) -> None:
+    """The phase-7 workload through EngineLoop on the paged kernel, each
+    step a graph replay and eagerly: the same tokens bit for bit."""
+    import dataclasses
+    from repro_torch.serving import EngineLoop
+    from repro_torch.serving.request import synthetic_workload
+
+    hopper = dataclasses.replace(cfg, paged_attention_impl="hopper")
+    outs = {}
+    for graph in (True, False):
+        reqs = synthetic_workload(SLOTS, rate=1e9, vocab=cfg.vocab,
+                                  prompt_lens=(PROMPT,), gen_lens=(GEN,),
+                                  seed=3)
+        loop = EngineLoop(hopper, params, n_slots=SLOTS,
+                          max_seq=PROMPT + GEN, block_size=PAGE,
+                          cuda_graph=graph)
+        for fn in kern.values():
+            fn.launches = 0
+        loop.warmup()
+        summary = loop.run(reqs).summary()
+        torch.cuda.synchronize()
+        for name, fn in kern.items():
+            total[name] += fn.launches
+        outs[graph] = [r.output for r in reqs]
+        print(f"[families] {cfg.name} {'graph' if graph else 'eager'}: "
+              f"tok/s={summary['tok_per_s']:.1f} ttft_p50_s="
+              f"{summary['ttft_p50_s']:.4f}", flush=True)
+    print(f"[families] {cfg.name} graph tokens bitwise equal to eager: "
+          f"{outs[True] == outs[False]}", flush=True)
+    check(outs[True] == outs[False], f"{cfg.name}: the graph's greedy "
+          "tokens differ from the eager step's")
+
+
+def forward_ms(torch, cfg, params, smi: str) -> None:
+    """forward() on one prompt of two scan chunks: ms per call (host clock
+    around a synced call, after one warm call), finite logits."""
+    from repro_torch.models import transformer as T
+
+    length = 2 * cfg.scan_chunk
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, size=(1, length), dtype=np.int64)).cuda()
+    with torch.no_grad():
+        T.forward(params, cfg, tokens)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = T.forward(params, cfg, tokens, emit_cache=True)
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    chunks = length // cfg.scan_chunk
+    print(f"[families] {cfg.name} forward 1x{length} ({chunks} scan chunks "
+          f"of {cfg.scan_chunk}): ms={ms:.3f} logits="
+          f"{tuple(logits.shape)} ({smi})", flush=True)
+    check(logits.shape == (1, length, cfg.vocab)
+          and bool(torch.isfinite(logits).all())
+          and len(cache["layers"]) == cfg.n_layers,
+          f"{cfg.name} forward logits {tuple(logits.shape)} not finite")
+
+
+def serve_family(torch, kern, api, cfg, params, layouts, total, smi: str):
+    """serve() at full scale (the CLI's phase-8 workload), with its weights
+    built once (build_params returns this copy): the graph and eager runs
+    on the first layout bitwise equal, and every other layout's tokens
+    equal to the first's (paged == dense); tok/s and peak memory."""
+    arch = {"falcon-mamba-7b": "falcon_mamba_7b",
+            "recurrentgemma-2b": "recurrentgemma_2b"}[cfg.name]
+    build = api.build_params
+    api.build_params = lambda c, device: params
+    runs = [(layouts[0], True), (layouts[0], False)] + [
+        (layout, True) for layout in layouts[1:]]
+    outs = {}
+    try:
+        api.serve(serve_options(api, arch=arch, requests=1, gen_len=2))
+        for layout, graph in runs:
+            for fn in kern.values():
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            report = api.serve(serve_options(api, arch=arch,
+                                             kv_layout=layout),
+                               cuda_graph=graph)
+            torch.cuda.synchronize()
+            for name, fn in kern.items():
+                total[name] += fn.launches
+            outs[layout, graph] = report.outputs
+            done = sum(len(r.output) == r.max_new_tokens
+                       for r in report.requests)
+            print(f"[families] {cfg.name} serve {layout} "
+                  f"{'graph' if graph else 'eager'}: requests_done="
+                  f"{report.summary['requests_done']} tok/s="
+                  f"{report.summary['tok_per_s']:.1f} ttft_p50_s="
+                  f"{report.summary['ttft_p50_s']:.4f} max_memory_allocated "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                  f"({smi})", flush=True)
+            check(done == SERVE_ENTRY["requests"], f"{cfg.name} {layout}: "
+                  f"{done} requests finished")
+    finally:
+        api.build_params = build
+    first = outs[layouts[0], True]
+    same = {f"{layout}-{'graph' if graph else 'eager'}": out == first
+            for (layout, graph), out in outs.items()}
+    print(f"[families] {cfg.name} tokens bitwise equal to the "
+          f"{layouts[0]} graph run's: {same}", flush=True)
+    check(all(same.values()), f"{cfg.name}: tokens differ across runs "
+          f"{same}")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -1879,11 +2425,13 @@ def main() -> None:
     # 10. speculative decoding through the entry point
     spec_launches = phase_speculation(torch, kern, QWEN2, params, smi)
     del params
+    # 11. the MoE and recurrent families
+    family_launches = phase_families(torch, kern, smi)
     by_phase = {"alexnet": launches, "measured": measured_launches,
                 "prefill": prefill_launches, "serve": serve_launches,
                 "serve_entry": entry_launches,
                 "placement": placement_launches,
-                "speculation": spec_launches}
+                "speculation": spec_launches, "families": family_launches}
     home = {"flash_attention": "prefill", "paged_attention": "serve_entry"}
 
     rows = []

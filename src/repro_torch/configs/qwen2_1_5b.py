@@ -14,6 +14,6 @@ CONFIG = ModelConfig(
 SMOKE = ModelConfig(
     name="qwen2-smoke",
     n_layers=4, d_model=96, n_heads=6, n_kv_heads=2, d_ff=192, vocab=512,
-    qkv_bias=True, tie_embeddings=True, attention_impl="dot",
+    qkv_bias=True, tie_embeddings=True, attention_impl="dot", scan_chunk=16,
 )
 LR_SCHEDULE = "cosine"

@@ -8,10 +8,12 @@ Each ported architecture contributes a module of this package defining:
 Shapes are the assignment's four workloads.  ``supports()`` encodes the
 skip rules (long_500k needs sub-quadratic attention).
 
-Only ``qwen2_1_5b`` and ``alexnet`` are ported.  ``get`` raises
-``NotImplementedError`` for every other name in ``ARCH_NAMES`` (ROADMAP §1
-item 7), and so does ``all_archs`` until they are.  ``input_specs`` and
-``runnable_cells`` wait for the dry run (item 9).
+Every decoder-only architecture and ``alexnet`` are ported.  ``get`` raises
+``NotImplementedError`` for the two that need cross-attention,
+``seamless_m4t_medium`` (encoder-decoder) and ``llama32_vision_90b``
+(vision front end) (ROADMAP §1 item 7), and so does ``all_archs`` until
+they are.  ``input_specs`` and ``runnable_cells`` wait for the dry run
+(item 9).
 """
 from __future__ import annotations
 
@@ -70,8 +72,10 @@ def get(name: str) -> ArchSpec:
         if err.name != module or name not in ARCH_NAMES:
             raise
         raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ROADMAP §1 item 7: the other "
-            "architectures); the port has qwen2_1_5b and alexnet") from None
+            f"arch {name!r} is not ported yet: cross-attention and the "
+            "encoder-decoder wait for ROADMAP §1 item 7 (the other "
+            "architectures); the port has every decoder-only config and "
+            "alexnet") from None
     return ArchSpec(
         name=name,
         config=getattr(mod, "CONFIG", None),

@@ -9,8 +9,12 @@ the network's layer specs.
 For a transformer (a ``ModelConfig``) the JAX package stacks its layers for
 ``lax.scan``: ``decoder.blocks`` holds one tree per position of the layer
 pattern with a leading super-block axis, and ``decoder.rem`` the remainder
-layers.  Conversion unstacks them into the port's one-dict-per-layer list
-and checks every shape against ``transformer.param_shapes``.
+layers.  Conversion interleaves them into the port's one-dict-per-layer
+list — layer i is ``blocks[i % U][i // U]`` for the n_super·U layers of
+whole pattern units and ``rem[i - n_super·U]`` after them — and checks
+every shape against ``transformer.param_shapes``.  An MoE layer's expert
+stacks keep their leading expert axis.  :func:`state_from_numpy` unstacks a
+decode cache of the JAX package the same way.
 """
 from __future__ import annotations
 
@@ -47,21 +51,25 @@ def _cnn_params(net: NetworkSpec, arrays: Sequence[Mapping[str, np.ndarray]],
     return out
 
 
-def _lm_params(cfg: ModelConfig, tree: Mapping[str, Any],
-               device) -> Dict[str, Any]:
-    unit = cfg.block_pattern
-    blocks, rem = tree["decoder"]["blocks"], tree["decoder"]["rem"]
-    n_super = cfg.n_layers // len(unit)
+def _unstack(cfg: ModelConfig, blocks, rem) -> List[Any]:
+    """The JAX package's (blocks, rem) layer stacks as one tree per layer."""
+    u = len(cfg.pattern_unit())
     layers = []
     for i in range(cfg.n_layers):
-        s, j = divmod(i, len(unit))
-        if s < n_super:
+        s, j = divmod(i, u)
+        if s < cfg.n_super:
             layers.append(map_params(lambda _, a, s=s: a[s],
                                      _plain(blocks[j])))
         else:
-            layers.append(_plain(rem[i - n_super * len(unit)]))
+            layers.append(_plain(rem[i - cfg.n_super * u]))
+    return layers
+
+
+def _lm_params(cfg: ModelConfig, tree: Mapping[str, Any],
+               device) -> Dict[str, Any]:
     flat = {k: _plain(v) for k, v in tree.items() if k != "decoder"}
-    flat["layers"] = layers
+    flat["layers"] = _unstack(cfg, tree["decoder"]["blocks"],
+                              tree["decoder"]["rem"])
     shapes = param_shapes(cfg)
     _check_tree(flat, shapes, "params")
 
@@ -70,6 +78,26 @@ def _lm_params(cfg: ModelConfig, tree: Mapping[str, Any],
             device=device, dtype=cfg.param_dtype)
 
     return map_params(tensor, flat)
+
+
+def state_from_numpy(cfg: ModelConfig, cache: Mapping[str, Any], *,
+                     device="cuda") -> Dict[str, Any]:
+    """A decode cache of the JAX package (``init_cache``, ``init_slot_cache``
+    or ``init_slot_cache_paged`` layout, numpy leaves) in the port's layout:
+    one entry per layer, each leaf in its own dtype (bfloat16 conv states
+    included), ``pos`` and any ``block_tables``.  The cross-attention
+    features are not carried: the port has no cross-attention."""
+    def tensor(_, a):
+        if str(np.asarray(a).dtype) == "bfloat16":
+            return torch.from_numpy(np.asarray(a, np.float32)).to(
+                device=device, dtype=torch.bfloat16)
+        return torch.from_numpy(np.array(a)).to(device)
+
+    blocks, rem = cache["layers"]
+    out = {"layers": _unstack(cfg, blocks, rem), "pos": cache["pos"]}
+    if "block_tables" in cache:
+        out["block_tables"] = cache["block_tables"]
+    return map_params(tensor, out)
 
 
 def _plain(tree):

@@ -1,24 +1,34 @@
-"""The config-driven transformer, dense all-attention path (qwen2, llama-style
-decoders): full-sequence forward (training shape and prefill), the decode
-step over a dense cache (the static server's; a rolling buffer for windowed
-configs), the slot decode steps the serving engine runs, on the dense slot
-cache and on the block-paged one, and the block-paged M-token step that
-speculative decoding verifies with.
+"""The config-driven transformer family, decoder-only: dense llama-style
+decoders (qwen2, deepseek-coder, granite, minicpm), the MoE decoders
+(mixtral, phi3.5-moe; ``models/moe.py``), the Mamba-1 decoder (falcon-mamba;
+``models/ssm.py``) and the RG-LRU hybrid (recurrentgemma).  Full-sequence
+forward (training shape and prefill), the decode step over a dense cache
+(the static server's; a rolling buffer for windowed configs), the slot
+decode steps the serving engine runs, on the dense slot cache and on the
+block-paged one, and the block-paged M-token step that speculative decoding
+verifies with.
 
 Plain functions on explicit parameters, as in the JAX package: ``params`` is
 a dict holding ``embed`` (V, D), ``final_norm`` (D,), ``layers`` — one dict
-per layer with ``ln1``, ``attn`` (``wq wk wv wo`` [+ ``bq bk bv``]),
-``ln2``, ``mlp`` (``w_gate w_up w_down``) — and ``lm_head`` when embeddings
-are untied.  The JAX package stacks layers for ``lax.scan``;
+per layer, by the layer's type: ``attn`` layers hold ``ln1``, ``attn``
+(``wq wk wv wo`` [+ ``bq bk bv``]), ``ln2`` and ``mlp`` (``w_gate w_up
+w_down``, or the MoE's ``router`` and expert stacks); ``rec`` layers hold
+``ln1``, ``rec`` (the RG-LRU branch), ``ln2`` and ``mlp``; ``mamba`` layers
+hold ``ln1`` and ``mamba`` — and ``lm_head`` when embeddings are untied.
+The JAX package stacks layers for ``lax.scan``;
 ``models.convert.params_from_numpy`` unstacks its tree into this layout.
 
-Unlike the JAX package's pure functions, the decode steps update the cache
-in place (the KV rows or arenas, the positions): it is the serving engine's
-state, copying a 28-layer cache every token would double the step's traffic,
-and a CUDA graph replaying the step reads and writes the same buffers.
+A cache holds one entry per layer: ``{"k", "v"}`` rows (dense) or arenas
+(paged) for an attention layer, ``{"rec": {"h", "conv"}}`` or ``{"mamba":
+{"h", "conv"}}`` for a recurrent one, slot-major in either layout.  Unlike
+the JAX package's pure functions, the decode steps update the cache in place
+(the KV rows or arenas, the recurrent states, the positions): it is the
+serving engine's state, copying a 28-layer cache every token would double
+the step's traffic, and a CUDA graph replaying the step reads and writes the
+same buffers.
 
-MoE, SSM and recurrent blocks, cross-attention and the encoder-decoder are
-not ported yet: configs that need them are refused.
+Cross-attention, the encoder-decoder and the vision front end are not
+ported yet: configs that need them are refused (ROADMAP §1 item 7).
 """
 from __future__ import annotations
 
@@ -29,6 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from . import attention as attn_lib
+from . import moe as moe_lib
+from . import ssm as ssm_lib
 from .layers import apply_rope, rmsnorm, swiglu
 
 Params = Dict[str, Any]
@@ -47,7 +59,20 @@ class ModelConfig:
     qkv_bias: bool = False
     gated_mlp: bool = True                  # SwiGLU (3 mats) vs plain (2)
     attn_window: Optional[int] = None       # SWA width (None = full)
-    block_pattern: Tuple[str, ...] = ("attn",)
+    block_pattern: Tuple[str, ...] = ("attn",)   # unit: attn|rec|mamba|xattn
+    cross_attn_every: int = 0               # vision: xattn every Nth layer
+    # MoE
+    n_experts: int = 0
+    moe_top_k: int = 2
+    capacity_factor: float = 1.25
+    # SSM
+    ssm_state: int = 16
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    scan_chunk: int = 256
+    # encoder-decoder and front end (refused: not ported yet)
+    encoder_decoder: bool = False
+    frontend: str = "none"                  # none | audio | vision
     rope_theta: float = 1e4
     norm_eps: float = 1e-6
     tie_embeddings: bool = True
@@ -63,37 +88,82 @@ class ModelConfig:
     def hd(self) -> int:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
 
+    def pattern_unit(self) -> Tuple[str, ...]:
+        if self.cross_attn_every > 0:
+            return tuple(["attn"] * (self.cross_attn_every - 1) + ["xattn"])
+        return self.block_pattern
+
     def layer_types(self) -> List[str]:
-        unit = self.block_pattern
+        unit = self.pattern_unit()
         return [unit[i % len(unit)] for i in range(self.n_layers)]
 
+    @property
+    def n_super(self) -> int:
+        return self.n_layers // len(self.pattern_unit())
 
-def _check_dense(cfg: ModelConfig) -> None:
-    other = sorted(set(cfg.layer_types()) - {"attn"})
-    if other:
+    def mamba_args(self) -> ssm_lib.MambaArgs:
+        return ssm_lib.MambaArgs(self.d_model, self.ssm_state, self.ssm_conv,
+                                 self.ssm_expand, self.scan_chunk)
+
+    def rglru_args(self) -> ssm_lib.RGLRUArgs:
+        return ssm_lib.RGLRUArgs(self.d_model, self.ssm_conv, self.ssm_expand,
+                                 chunk=self.scan_chunk)
+
+    def moe_args(self) -> moe_lib.MoEArgs:
+        return moe_lib.MoEArgs(self.d_model, self.d_ff, self.n_experts,
+                               self.moe_top_k, self.capacity_factor)
+
+
+RECURRENT = ("rec", "mamba")
+
+
+def _check_decoder_only(cfg: ModelConfig) -> None:
+    """Refuse what the port does not run yet: cross-attention layers, the
+    encoder-decoder and the vision front end."""
+    if (cfg.encoder_decoder or cfg.frontend != "none"
+            or "xattn" in cfg.layer_types()):
         raise NotImplementedError(
-            f"{cfg.name}: layer types {other} are not ported yet; the port "
-            "runs dense all-attention configs")
+            f"{cfg.name}: cross-attention, the encoder-decoder and the "
+            f"vision front end are not ported yet (ROADMAP §1 item 7); the "
+            f"port runs decoder-only configs of layer types attn, rec and "
+            f"mamba")
 
 
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
-def param_shapes(cfg: ModelConfig) -> Params:
-    """The parameter tree's shapes, in the layout this module reads."""
-    _check_dense(cfg)
+def _block_shapes(cfg: ModelConfig, btype: str) -> Params:
     d, h, hk, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                        cfg.d_ff)
-    attn = {"wq": (d, h * hd), "wk": (d, hk * hd), "wv": (d, hk * hd),
-            "wo": (h * hd, d)}
-    if cfg.qkv_bias:
-        attn.update(bq=(h * hd,), bk=(hk * hd,), bv=(hk * hd,))
-    mlp = {"w_up": (d, f), "w_down": (f, d)}
-    if cfg.gated_mlp:
-        mlp["w_gate"] = (d, f)
-    layer = {"ln1": (d,), "attn": attn, "ln2": (d,), "mlp": mlp}
+    if cfg.n_experts > 0:
+        mlp = moe_lib.moe_param_shapes(cfg.moe_args())
+    else:
+        mlp = {"w_up": (d, f), "w_down": (f, d)}
+        if cfg.gated_mlp:
+            mlp["w_gate"] = (d, f)
+    if btype == "attn":
+        attn = {"wq": (d, h * hd), "wk": (d, hk * hd), "wv": (d, hk * hd),
+                "wo": (h * hd, d)}
+        if cfg.qkv_bias:
+            attn.update(bq=(h * hd,), bk=(hk * hd,), bv=(hk * hd,))
+        return {"ln1": (d,), "attn": attn, "ln2": (d,), "mlp": mlp}
+    if btype == "rec":
+        return {"ln1": (d,),
+                "rec": ssm_lib.rglru_param_shapes(cfg.rglru_args()),
+                "ln2": (d,), "mlp": mlp}
+    if btype == "mamba":
+        return {"ln1": (d,),
+                "mamba": ssm_lib.mamba_param_shapes(cfg.mamba_args())}
+    raise ValueError(btype)
+
+
+def param_shapes(cfg: ModelConfig) -> Params:
+    """The parameter tree's shapes, in the layout this module reads."""
+    _check_decoder_only(cfg)
+    d = cfg.d_model
     shapes: Params = {"embed": (cfg.vocab, d), "final_norm": (d,),
-                      "layers": [layer] * cfg.n_layers}
+                      "layers": [_block_shapes(cfg, t)
+                                 for t in cfg.layer_types()]}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, cfg.vocab)
     return shapes
@@ -112,8 +182,10 @@ def map_params(fn, tree, name: str = ""):
 def init_params(cfg: ModelConfig, seed: int = 0, *,
                 device="cuda") -> Params:
     """Random parameters from ``seed``, drawn on ``device``: He-normal
-    matrices, N(0, 0.02) embeddings, zero norms and biases (the JAX
-    package's init; the two frameworks' generators give other numbers)."""
+    matrices (fan-in the second-to-last axis, so an expert stack's per
+    expert), N(0, 0.02) embeddings, zero norms and biases, and the SSM
+    blocks' own draws (``ssm.init_leaf``) — the JAX package's init; the two
+    frameworks' generators give other numbers."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("init_params: no CUDA device is available; pass "
@@ -121,22 +193,31 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def make(name, shape):
+        special = ssm_lib.init_leaf(name, shape, gen, device)
+        if special is not None:
+            return special.to(cfg.param_dtype)
         if len(shape) == 1:
             return torch.zeros(shape, dtype=cfg.param_dtype, device=device)
-        std = 0.02 if name == "embed" else (2.0 / shape[0]) ** 0.5
+        std = 0.02 if name == "embed" else (2.0 / shape[-2]) ** 0.5
         return (torch.randn(shape, generator=gen, device=device) * std).to(
             cfg.param_dtype)
 
     return map_params(make, param_shapes(cfg))
 
 
+# leaves the layers read in fp32 whatever the compute dtype: the norms, the
+# MoE router, the SSM decay parameters
+_FP32_LEAVES = ("final_norm", "router", "A_log", "lambda")
+
+
 def compute_params(params: Params, cfg: ModelConfig) -> Params:
     """The parameters with every matrix and bias cast to the compute dtype
-    once, norms left as they are.  The layers cast each weight to the compute
-    dtype where they use it, so this changes no number: it only keeps a
-    decode step from re-casting 1.5B weights every token."""
+    once, the leaves the layers read in fp32 (norms, the MoE router, the
+    SSM decays) left as they are.  The layers cast each weight to the
+    compute dtype where they use it, so this changes no number: it only
+    keeps a decode step from re-casting billions of weights every token."""
     def cast(name, t):
-        if name.startswith("ln") or name == "final_norm":
+        if name.startswith("ln") or name in _FP32_LEAVES:
             return t
         return t.to(cfg.compute_dtype)
 
@@ -144,18 +225,41 @@ def compute_params(params: Params, cfg: ModelConfig) -> Params:
 
 
 def count_params(cfg: ModelConfig) -> int:
-    """Parameter count, the JAX package's formula for dense configs."""
-    _check_dense(cfg)
+    """Parameter count, the JAX package's formula."""
+    _check_decoder_only(cfg)
     d, h, hk, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                        cfg.d_ff)
     attn = d * h * hd + 2 * d * hk * hd + h * hd * d
     if cfg.qkv_bias:
         attn += h * hd + 2 * hk * hd
-    mlp = (3 if cfg.gated_mlp else 2) * d * f
-    total = cfg.n_layers * (attn + mlp) + cfg.vocab * d
+    mats = 3 if cfg.gated_mlp else 2
+    if cfg.n_experts > 0:
+        mlp = cfg.n_experts * mats * d * f + d * cfg.n_experts
+    else:
+        mlp = mats * d * f
+    ma = cfg.mamba_args()
+    mamba = (d * 2 * ma.d_inner + ma.d_inner * d + ma.d_inner * ma.d_conv
+             + ma.d_inner * (ma.dt_rank + 2 * ma.d_state)
+             + ma.dt_rank * ma.d_inner + ma.d_inner * ma.d_state + ma.d_inner)
+    ra = cfg.rglru_args()
+    rec = (d * 2 * ra.d_inner + ra.d_inner * d + 2 * ra.d_inner * ra.d_inner
+           + 2 * ra.d_inner + ra.d_inner * ra.d_conv)
+    per_type = {"attn": attn + mlp, "rec": rec + mlp, "mamba": mamba}
+    total = sum(per_type[t] for t in cfg.layer_types())
+    total += cfg.vocab * d
     if not cfg.tie_embeddings:
         total += d * cfg.vocab
     return total
+
+
+def count_active_params(cfg: ModelConfig) -> int:
+    """MoE: only top_k experts per token count toward 6·N·D (the JAX
+    package's formula, which discounts the experts of attention layers)."""
+    if cfg.n_experts == 0:
+        return count_params(cfg)
+    mats = 3 if cfg.gated_mlp else 2
+    inactive = (cfg.n_experts - cfg.moe_top_k) * mats * cfg.d_model * cfg.d_ff
+    return count_params(cfg) - cfg.layer_types().count("attn") * inactive
 
 
 # ---------------------------------------------------------------------------
@@ -187,6 +291,8 @@ def _mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     cd = cfg.compute_dtype
     m = p["mlp"]
     h_in = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    if cfg.n_experts > 0:
+        return x + moe_lib.moe_apply(m, h_in, cfg.moe_args(), cd)
     if cfg.gated_mlp:
         return x + swiglu(h_in, m["w_gate"], m["w_up"], m["w_down"], cd)
     h = F.gelu(h_in @ m["w_up"].to(cd), approximate="tanh")
@@ -205,6 +311,21 @@ def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig):
     return params["embed"][tokens.long()].to(cfg.compute_dtype)
 
 
+def _recurrent(cfg: ModelConfig, btype: str):
+    """(full-sequence fn, step fn, args) of a recurrent layer type."""
+    if btype == "rec":
+        return ssm_lib.rglru_apply, ssm_lib.rglru_step, cfg.rglru_args()
+    return ssm_lib.mamba_apply, ssm_lib.mamba_step, cfg.mamba_args()
+
+
+def _recurrent_out(p: Params, x: torch.Tensor, y: torch.Tensor, btype: str,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """The residual around a recurrent branch; a ``rec`` layer adds its MLP,
+    a mamba block carries its own expansion."""
+    x = x + y
+    return _mlp(p, x, cfg) if btype == "rec" else x
+
+
 # ---------------------------------------------------------------------------
 # Full-sequence forward (training shape, prefill)
 # ---------------------------------------------------------------------------
@@ -212,17 +333,29 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             emit_cache: bool = False):
     """tokens (B, S) int -> (logits (B, S, V), cache or None).
 
-    With ``emit_cache`` (prefill) the cache holds every layer's K/V in the
-    compute dtype, ``{"layers": [{"k", "v"}, ...], "pos": S}``; with an
+    With ``emit_cache`` (prefill) the cache holds one entry per layer and
+    ``pos`` S: an attention layer's K/V in the compute dtype (with an
     ``attn_window`` shorter than S, only the last ``attn_window`` positions,
-    position p in slot p % attn_window, as the JAX package keeps them.  Attention
-    runs through ``cfg.attention_impl``; ``hopper`` launches the
-    flash-attention kernel once per layer on a CUDA tensor."""
-    _check_dense(cfg)
+    position p in slot p % attn_window, as the JAX package keeps them), a
+    recurrent layer's decode state.  Attention runs through
+    ``cfg.attention_impl``; ``hopper`` launches the flash-attention kernel
+    once per attention layer on a CUDA tensor.  A recurrent config needs S
+    to be a multiple of ``min(scan_chunk, S)``."""
+    _check_decoder_only(cfg)
     x = _embed(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=x.device)
     caches = []
-    for p in params["layers"]:
+    for btype, p in zip(cfg.layer_types(), params["layers"]):
+        if btype in RECURRENT:
+            apply, _, args = _recurrent(cfg, btype)
+            h_in = rmsnorm(x, p["ln1"], cfg.norm_eps)
+            y = apply(p[btype], h_in, args, cfg.compute_dtype,
+                      return_state=emit_cache)
+            if emit_cache:
+                y, state = y
+                caches.append({btype: state})
+            x = _recurrent_out(p, x, y, btype, cfg)
+            continue
         h_in = rmsnorm(x, p["ln1"], cfg.norm_eps)
         q, k, v = _project_qkv(p["attn"], h_in, cfg)
         q = apply_rope(q, positions[None, None], cfg.rope_theta)
@@ -253,21 +386,41 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 # Decode: one token per sequence against a cache
 # ---------------------------------------------------------------------------
+def _state_entry(cfg: ModelConfig, btype: str, batch: int, device):
+    """A recurrent layer's zero decode state for ``batch`` rows."""
+    if btype == "rec":
+        return {"rec": ssm_lib.rglru_init_state(cfg.rglru_args(), batch,
+                                                device=device)}
+    return {"mamba": ssm_lib.mamba_init_state(cfg.mamba_args(), batch,
+                                              device=device)}
+
+
+def _layer_entries(cfg: ModelConfig, batch: int, kv_shape: tuple,
+                   device) -> List[Dict[str, Any]]:
+    """One cache entry per layer: zero K/V of ``kv_shape`` (rows or an
+    arena) for an attention layer, a zero state of ``batch`` rows for a
+    recurrent one."""
+    def entry(btype):
+        if btype in RECURRENT:
+            return _state_entry(cfg, btype, batch, device)
+        return {name: torch.zeros(kv_shape, dtype=cfg.compute_dtype,
+                                  device=device) for name in ("k", "v")}
+
+    return [entry(t) for t in cfg.layer_types()]
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                device="cuda") -> Dict[str, Any]:
-    """Dense decode cache: each layer's K and V as ``(batch, n_kv_heads, t,
-    head_dim)`` in the compute dtype, ``t = min(attn_window, max_seq)`` (a
-    rolling buffer, position p in slot p % t, for a windowed config), and
-    one position ``pos`` shared by the batch."""
-    _check_dense(cfg)
+    """Dense decode cache: each attention layer's K and V as ``(batch,
+    n_kv_heads, t, head_dim)`` in the compute dtype, ``t = min(attn_window,
+    max_seq)`` (a rolling buffer, position p in slot p % t, for a windowed
+    config), each recurrent layer's state, and one position ``pos`` shared
+    by the batch."""
+    _check_decoder_only(cfg)
     t = min(cfg.attn_window or max_seq, max_seq)
-    shape = (batch, cfg.n_kv_heads, t, cfg.hd)
-
-    def rows():
-        return torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
-
-    return {"layers": [{"k": rows(), "v": rows()}
-                       for _ in range(cfg.n_layers)],
+    return {"layers": _layer_entries(cfg, batch,
+                                     (batch, cfg.n_kv_heads, t, cfg.hd),
+                                     device),
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
 
@@ -284,9 +437,15 @@ def init_slot_cache(cfg: ModelConfig, n_slots: int, max_seq: int, *,
 def reset_slot_state(cfg: ModelConfig, cache: Dict[str, Any],
                      slot: int) -> Dict[str, Any]:
     """Clear one slot's per-request state before binding a new request, in
-    either slot layout: its position.  KV rows and pages need no clearing
-    (position masks hide stale entries), and the paged block tables
-    survive.  In place; returns the cache."""
+    either slot layout: its position and its recurrent states, which carry
+    no position and would leak across tenants (zeroed, as ``init_cache``
+    makes them).  KV rows and pages need no clearing (position masks hide
+    stale entries), and the paged block tables survive.  In place, so a
+    captured step's buffers stay the same storage; returns the cache."""
+    for layer in cache["layers"]:
+        for btype in RECURRENT:
+            for t in layer.get(btype, {}).values():
+                t[slot].zero_()
     cache["pos"][slot] = 0
     return cache
 
@@ -331,15 +490,48 @@ def _dense_attn_block(p: Params, x: torch.Tensor, layer: Dict[str, Any],
     return _finish_block(p, x, out, cfg)
 
 
+def _recurrent_block(btype: str, p: Params, x: torch.Tensor,
+                     layer: Dict[str, Any], cfg: ModelConfig,
+                     active: Optional[torch.Tensor]) -> torch.Tensor:
+    """One token of a recurrent layer.  The slot-major state is written in
+    place; an inactive slot keeps its state bit for bit."""
+    _, step, args = _recurrent(cfg, btype)
+    state = layer[btype]
+    h_in = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    y, new = step(p[btype], h_in, state, args, cfg.compute_dtype)
+    for name, t in state.items():
+        upd = new[name]
+        if active is not None:
+            upd = torch.where(active.reshape((-1,) + (1,) * (t.dim() - 1)),
+                              upd, t)
+        t.copy_(upd)
+    return _recurrent_out(p, x, y, btype, cfg)
+
+
+def _decode_layers(params: Params, cfg: ModelConfig, cache: Dict[str, Any],
+                   tokens: torch.Tensor, active: Optional[torch.Tensor],
+                   attn_block) -> torch.Tensor:
+    """Embed, every layer in order (``attn_block(p, x, layer)`` for an
+    attention layer, the shared recurrent step otherwise), the head: the one
+    body the dense, paged and static steps share."""
+    x = _embed(params, tokens, cfg)
+    for btype, p, layer in zip(cfg.layer_types(), params["layers"],
+                               cache["layers"]):
+        if btype in RECURRENT:
+            x = _recurrent_block(btype, p, x, layer, cfg, active)
+        else:
+            x = attn_block(p, x, layer)
+    return _logits(params, x, cfg)
+
+
 def _decode_step_impl(params: Params, cfg: ModelConfig,
                       cache: Dict[str, Any], tokens: torch.Tensor,
                       active: Optional[torch.Tensor]):
-    _check_dense(cfg)
+    _check_decoder_only(cfg)
     pos = cache["pos"]
-    x = _embed(params, tokens, cfg)
-    for p, layer in zip(params["layers"], cache["layers"]):
-        x = _dense_attn_block(p, x, layer, cfg, pos, active)
-    logits = _logits(params, x, cfg)
+    logits = _decode_layers(
+        params, cfg, cache, tokens, active,
+        lambda p, x, layer: _dense_attn_block(p, x, layer, cfg, pos, active))
     pos.copy_(pos + 1 if active is None else torch.where(active, pos + 1,
                                                          pos))
     return logits, cache
@@ -360,10 +552,11 @@ def decode_step_slots(params: Params, cfg: ModelConfig,
 
     tokens (B, 1) int: each slot's next token; active (B,) bool;
     ``cache["pos"]`` (B,) int32.  Each active slot's K/V is written at its
-    position and the position advances; an inactive slot keeps its rows and
-    position.  The per-slot math is :func:`decode_step`'s, which makes
-    continuous batching's tokens those of the static server.  Returns
-    (logits (B, 1, V), cache), the cache updated in place.
+    position, its recurrent states advance, and its position advances; an
+    inactive slot keeps its rows, states and position.  The per-slot math is
+    :func:`decode_step`'s, which makes continuous batching's tokens those of
+    the static server.  Returns (logits (B, 1, V), cache), the cache updated
+    in place.
     """
     return _decode_step_impl(params, cfg, cache, tokens, active)
 
@@ -377,28 +570,26 @@ def init_slot_cache_paged(cfg: ModelConfig, n_slots: int, max_seq: int, *,
                           device="cuda") -> Dict[str, Any]:
     """Block-paged cache for the continuous-batching engine.
 
-    Each layer keeps K and V in one ``(total_blocks + 1, n_kv_heads,
-    block_size, head_dim)`` arena each, in the compute dtype; a slot's
-    sequence lives in the pages its ``block_tables`` row names (page ``j``
-    holds positions ``[j * block_size, (j + 1) * block_size)``).  The last
-    page is the trash page: inactive slots write there, and no table names
-    it.  One table row serves every layer.
+    Each attention layer keeps K and V in one ``(total_blocks + 1,
+    n_kv_heads, block_size, head_dim)`` arena each, in the compute dtype; a
+    slot's sequence lives in the pages its ``block_tables`` row names (page
+    ``j`` holds positions ``[j * block_size, (j + 1) * block_size)``).  The
+    last page is the trash page: inactive slots write there, and no table
+    names it.  One table row serves every layer.  Recurrent states stay
+    slot-major, as in the dense layout (they are O(1) in sequence length).
+    Sliding-window configs must serve on the dense layout.
     """
-    _check_dense(cfg)
+    _check_decoder_only(cfg)
     if cfg.attn_window is not None:
         raise ValueError(
             "paged KV layout does not support sliding-window attention "
-            "(rolling-buffer slots)")
+            "(rolling-buffer slots); serve this config with the dense "
+            "layout")
     blocks_per_slot = -(-max_seq // block_size)
     if total_blocks is None:
         total_blocks = n_slots * blocks_per_slot
     shape = (total_blocks + 1, cfg.n_kv_heads, block_size, cfg.hd)
-
-    def arena():
-        return torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
-
-    return {"layers": [{"k": arena(), "v": arena()}
-                       for _ in range(cfg.n_layers)],
+    return {"layers": _layer_entries(cfg, n_slots, shape, device),
             "pos": torch.zeros((n_slots,), dtype=torch.int32, device=device),
             "block_tables": torch.zeros((n_slots, blocks_per_slot),
                                         dtype=torch.int32, device=device)}
@@ -436,18 +627,19 @@ def decode_step_slots_paged(params: Params, cfg: ModelConfig,
     tokens (B, 1) int: each slot's next token; active (B,) bool;
     ``cache["pos"]`` (B,) int32 per-slot positions and
     ``cache["block_tables"]`` (B, NB) int32.  Each active slot's new K/V is
-    written into its page at ``pos`` and its position advances by one; an
-    inactive slot writes to the trash page and keeps its position and live
-    pages.  Returns (logits (B, 1, V), cache), the cache updated in place
-    (``pos`` too: a CUDA graph of the step reads the same buffer).
+    written into its page at ``pos``, its recurrent states advance and its
+    position advances by one; an inactive slot writes to the trash page and
+    keeps its position, states and live pages.  Everything but the
+    attention block is :func:`decode_step_slots`'s.  Returns (logits (B, 1,
+    V), cache), the cache updated in place (``pos`` too: a CUDA graph of the
+    step reads the same buffer).
     """
     pos = cache["pos"]
     block_tables = cache["block_tables"]
-    x = _embed(params, tokens, cfg)
-    for p, layer in zip(params["layers"], cache["layers"]):
-        x = _paged_attn_block(p, x, layer, cfg, pos, block_tables, active,
-                              max_seq)
-    logits = _logits(params, x, cfg)
+    logits = _decode_layers(
+        params, cfg, cache, tokens, active,
+        lambda p, x, layer: _paged_attn_block(p, x, layer, cfg, pos,
+                                              block_tables, active, max_seq))
     pos.copy_(torch.where(active, pos + 1, pos))
     return logits, cache
 

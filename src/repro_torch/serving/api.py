@@ -22,6 +22,9 @@ the card the paged layout's decode attention is the hand-written kernel
 ``"pallas"``) and each engine step replays a CUDA graph; on the CPU the
 plain versions run eagerly.  The dense layout's attention and the static
 server are plain PyTorch ops, as they are XLA ops in the JAX package.
+Every decoder-only config of the registry serves: the MoE and recurrent
+families too (their states ride the slot engines), windowed configs
+(mixtral, recurrentgemma) on the dense layout.
 
 Phase placement and disaggregation run as in the JAX package:
 ``--placement auto`` prices the two serving phases over the placement
@@ -492,7 +495,7 @@ def serve(options: ServeOptions, *, device="cuda", verbose: bool = False,
 
     arch = registry.get(w.arch)
     cfg = arch.smoke if w.scale == "smoke" else arch.config
-    if cfg is None:
+    if cfg is None or cfg.encoder_decoder or cfg.frontend != "none":
         raise ValueError(f"serve supports decoder-only LMs; {w.arch} "
                          f"is not one at scale {w.scale}")
     if device.type == "cuda":
@@ -506,10 +509,16 @@ def serve(options: ServeOptions, *, device="cuda", verbose: bool = False,
             f"support rolling buffers yet — falling back to dense",
             flush=True)
         kv_layout = "dense"
-    if e.prefix_sharing and kv_layout != "paged":
-        raise ValueError(f"--prefix-sharing requires the paged KV "
-                         f"layout, but {w.arch} fell back to dense "
-                         f"(sliding-window attention)")
+    if e.prefix_sharing:
+        if kv_layout != "paged":
+            raise ValueError(f"--prefix-sharing requires the paged KV "
+                             f"layout, but {w.arch} fell back to dense "
+                             f"(sliding-window attention)")
+        if any(t != "attn" for t in cfg.layer_types()):
+            raise ValueError(f"--prefix-sharing requires an all-attention "
+                             f"config; {w.arch} mixes layer types "
+                             f"{sorted(set(cfg.layer_types()))} "
+                             f"(recurrent/cross state is slot-local)")
 
     params = build_params(cfg, device)
     max_len = w.prompt_len + w.gen_len

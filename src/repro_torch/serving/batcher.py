@@ -32,7 +32,8 @@ from typing import List, Optional
 
 from ..core import device_models
 from ..core.cost_model import layer_cost
-from ..core.layer_model import AttentionSpec, MLPSpec, NetworkSpec
+from ..core.layer_model import (AttentionSpec, MLPSpec, MoESpec, NetworkSpec,
+                                SSMSpec)
 from ..models.transformer import ModelConfig
 from .kv_pool import KVPool
 from .request import Request, RequestState
@@ -46,15 +47,33 @@ def phase_network_spec(cfg: ModelConfig, *, seq: int,
     the two workloads phase placement prices against each other."""
     layers = []
     for i, btype in enumerate(cfg.layer_types()):
-        if btype != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: layer type {btype!r} is not ported yet")
-        layers.append(AttentionSpec(
-            f"L{i}.attn", d_model=cfg.d_model, n_heads=cfg.n_heads,
-            n_kv_heads=cfg.n_kv_heads, seq=seq, kv_len=kv_len,
-            causal=True, window=cfg.attn_window, qkv_bias=cfg.qkv_bias))
-        layers.append(MLPSpec(f"L{i}.mlp", d_model=cfg.d_model,
-                              d_ff=cfg.d_ff, seq=seq, gated=cfg.gated_mlp))
+        if btype in ("attn", "xattn"):
+            layers.append(AttentionSpec(
+                f"L{i}.attn", d_model=cfg.d_model, n_heads=cfg.n_heads,
+                n_kv_heads=cfg.n_kv_heads, seq=seq, kv_len=kv_len,
+                causal=True, window=cfg.attn_window, qkv_bias=cfg.qkv_bias,
+                cross=btype == "xattn"))
+        elif btype == "rec":
+            layers.append(SSMSpec(f"L{i}.rglru", d_model=cfg.d_model,
+                                  d_state=cfg.ssm_state, d_conv=cfg.ssm_conv,
+                                  expand=cfg.ssm_expand, seq=seq,
+                                  variant="rglru"))
+        elif btype == "mamba":
+            layers.append(SSMSpec(f"L{i}.mamba", d_model=cfg.d_model,
+                                  d_state=cfg.ssm_state, d_conv=cfg.ssm_conv,
+                                  expand=cfg.ssm_expand, seq=seq,
+                                  variant="mamba1"))
+        if btype != "mamba":            # mamba blocks have no separate MLP
+            if cfg.n_experts > 0:
+                layers.append(MoESpec(f"L{i}.moe", d_model=cfg.d_model,
+                                      d_ff=cfg.d_ff, seq=seq,
+                                      n_experts=cfg.n_experts,
+                                      top_k=cfg.moe_top_k,
+                                      gated=cfg.gated_mlp))
+            else:
+                layers.append(MLPSpec(f"L{i}.mlp", d_model=cfg.d_model,
+                                      d_ff=cfg.d_ff, seq=seq,
+                                      gated=cfg.gated_mlp))
     tag = "decode-step" if seq == 1 else f"prefill{seq}"
     return NetworkSpec(f"{cfg.name}-{tag}", tuple(layers))
 

@@ -66,9 +66,10 @@ from ..obs import MetricsRegistry, Observability, default_clock
 from .batcher import ContinuousBatcher
 from .driver import (OpenLoopDriver, ServeMetrics, StreamDelta, TokenSink,
                      burst_size, sample_pools)
-from .engine_loop import (SlotEngine, snapshot_ready, snapshot_wait,
-                          state_to_device, trace_admission, trace_completion,
-                          trace_phase_flip, wire_pool_events)
+from .engine_loop import (SlotEngine, check_prefix_sharing, snapshot_ready,
+                          snapshot_wait, state_to_device, trace_admission,
+                          trace_completion, trace_phase_flip,
+                          wire_pool_events)
 from .kv_pool import KVPool
 from .request import Request, RequestState
 from .speculative import SpecPlan, SpeculativeDecoder, spec_dispatch
@@ -202,14 +203,8 @@ class DisaggregatedEngineLoop:
                  propose_override: Optional[Callable] = None,
                  obs: Optional[Observability] = None,
                  device="cuda", cuda_graph: bool = True):
-        if any(t != "attn" for t in cfg.layer_types()):
-            raise NotImplementedError(
-                f"{cfg.name}: layer types "
-                f"{sorted(set(cfg.layer_types()))} are not ported yet; "
-                f"ROADMAP §1 item 7 (the other architectures) ports them")
-        if prefix_sharing and kv_layout != "paged":
-            raise ValueError("prefix sharing maps physical pages — it "
-                             "requires kv_layout='paged'")
+        if prefix_sharing:
+            check_prefix_sharing(cfg, kv_layout)
         devices = ((assignment.prefill, assignment.decode)
                    if assignment is not None
                    else (torch.device(device),) * 2)

@@ -247,8 +247,9 @@ class SlotEngine:
         if self.kv_layout != "paged":
             raise ValueError("copy_page needs the paged KV layout")
         for layer in self.cache["layers"]:
-            layer["k"][dst] = layer["k"][src]
-            layer["v"][dst] = layer["v"][src]
+            if _is_arena(layer):
+                layer["k"][dst] = layer["k"][src]
+                layer["v"][dst] = layer["v"][src]
 
     def bind(self, req: Request, *, steps_total: int,
              start_pos: int = 0) -> None:
@@ -361,17 +362,18 @@ class SlotEngine:
     # ---- slot hand-off (phase disaggregation) ----------------------------
     def export_slot(self, s: int) -> Dict:
         """Snapshot every per-slot tensor a request needs to resume on
-        another engine: its KV, position, prompt row, feed state and
-        sampled-output row.  This is the payload the placement analyzer
-        prices with the offload-overhead model.
+        another engine: its KV, recurrent states, position, prompt row,
+        feed state and sampled-output row.  This is the payload the
+        placement analyzer prices with the offload-overhead model.
 
         Every tensor is a fresh copy, queued on the current stream behind
         the engine's steps: the slot may be rebound and stepped (a queued
         graph replay writes its rows) while the snapshot is held.  The
         dense layout ships the slot's whole ``max_seq`` KV rows; the paged
         layout ships only the pages that hold written tokens (``kv_tokens``
-        of them), gathered from the arena.  On a card, ``ready`` is an
-        event recorded after the copies (:func:`snapshot_ready`)."""
+        of them), gathered from the arena; recurrent states are slot-major
+        in either layout and ship as the slot's rows.  On a card, ``ready``
+        is an event recorded after the copies (:func:`snapshot_ready`)."""
         state = {
             "layout": self.kv_layout,
             "pos": self.cache["pos"][s].clone(),
@@ -386,14 +388,15 @@ class SlotEngine:
             n_used = math.ceil(lease.written_tokens / self.pool.block_size)
             phys = torch.tensor(lease.blocks[:n_used], dtype=torch.long,
                                 device=self.device)
-            state["layers"] = [{name: a.index_select(0, phys)
-                                for name, a in layer.items()}
-                               for layer in self.cache["layers"]]
             state["kv_tokens"] = lease.written_tokens
-        else:
-            state["layers"] = [{name: a[s].clone()
-                                for name, a in layer.items()}
-                               for layer in self.cache["layers"]]
+
+        def take(layer):
+            if self.kv_layout == "paged" and _is_arena(layer):
+                return {name: a.index_select(0, phys)
+                        for name, a in layer.items()}
+            return _map_tensors(lambda a: a[s].clone(), layer)
+
+        state["layers"] = [take(layer) for layer in self.cache["layers"]]
         state["ready"] = (_record_event(torch.cuda.current_stream(
             self.device)) if self.device.type == "cuda" else None)
         return state
@@ -446,17 +449,17 @@ class SlotEngine:
         if self.kv_layout == "paged":
             phys = torch.tensor(dest_blocks[skip:n_used], dtype=torch.long,
                                 device=self.device)
-            for layer, shipped in zip(self.cache["layers"], state["layers"]):
-                for name, a in layer.items():
-                    a.index_copy_(0, phys, shipped[name][skip:n_used])
             table = np.zeros((self.cache["block_tables"].shape[1],),
                              np.int32)
             table[:len(dest_blocks)] = dest_blocks
             self.cache["block_tables"][s].copy_(torch.from_numpy(table))
-        else:
-            for layer, shipped in zip(self.cache["layers"], state["layers"]):
+        for layer, shipped in zip(self.cache["layers"], state["layers"]):
+            if self.kv_layout == "paged" and _is_arena(layer):
                 for name, a in layer.items():
-                    a[s].copy_(shipped[name])
+                    a.index_copy_(0, phys, shipped[name][skip:n_used])
+            else:
+                for a, b in _tensor_pairs(layer, shipped):
+                    a[s].copy_(b)
         self.cache["pos"][s].copy_(state["pos"])
         self._prompts[s].copy_(state["prompt"])
         self._plens[s].copy_(state["plen"])
@@ -485,6 +488,21 @@ class SlotEngine:
         Non-tensor metadata (layout tag, written-token count, the ready
         event) is free."""
         return sum(int(t.nbytes) for t in _tensor_leaves(state))
+
+
+def _is_arena(layer: Dict) -> bool:
+    """An attention layer's K/V entry (rows or arenas), as opposed to a
+    recurrent layer's state."""
+    return "k" in layer
+
+
+def _tensor_pairs(dst, src):
+    """(dst, src) leaf pairs of two trees of one structure."""
+    if isinstance(dst, torch.Tensor):
+        yield dst, src
+    else:
+        for key in dst:
+            yield from _tensor_pairs(dst[key], src[key])
 
 
 def _tensor_leaves(tree):
@@ -567,6 +585,20 @@ def snapshot_wait(state: Dict) -> None:
         ready.synchronize()
 
 
+def check_prefix_sharing(cfg: T.ModelConfig, kv_layout: str) -> None:
+    """Raise on a loop that cannot share prefix pages: a dense layout, or a
+    config with recurrent layers, whose slot-local state no shared page
+    holds."""
+    if kv_layout != "paged":
+        raise ValueError("prefix sharing maps physical pages — it "
+                         "requires kv_layout='paged'")
+    if any(t != "attn" for t in cfg.layer_types()):
+        raise ValueError(
+            "prefix sharing requires an all-attention config: "
+            "recurrent/cross layer state is slot-local and cannot "
+            "be reconstructed from shared KV pages")
+
+
 class EngineLoop:
     """Colocated serving: one SlotEngine runs both phases of every request.
 
@@ -592,9 +624,8 @@ class EngineLoop:
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("EngineLoop: no CUDA device is available; "
                                "pass device='cpu' to run on the CPU")
-        if prefix_sharing and kv_layout != "paged":
-            raise ValueError("prefix sharing maps physical pages — it "
-                             "requires kv_layout='paged'")
+        if prefix_sharing:
+            check_prefix_sharing(cfg, kv_layout)
         self.cfg = cfg
         self.kv_layout = kv_layout
         self.prefix_sharing = prefix_sharing

@@ -144,24 +144,24 @@ def handoff_payload_bytes(cfg: ModelConfig, prompt_len: int, *,
                           dtype_bytes: int = 2,
                           slot_len: Optional[int] = None) -> int:
     """Analytic per-request phase-boundary payload: the prompt's KV rows
-    for every attention layer and the d_model activation / sampled-token
-    hand-off.
+    for every attention layer, recurrent states for SSM layers, and the
+    d_model activation / sampled-token hand-off.
 
     ``slot_len`` prices what the slot engines' transport moves: whole
     physical slot rows (``max_seq`` KV positions plus the int32
     prompt/output buffers), not just the logical prefix.  ``None`` prices
-    the logical payload (what an ideal block-paged transport would move).
-    Recurrent layers (their states) come with the other architectures
-    (ROADMAP §1 item 7)."""
+    the logical payload (what an ideal block-paged transport would move)."""
     total = cfg.d_model * dtype_bytes
+    di = cfg.ssm_expand * cfg.d_model
     kv_rows = slot_len or prompt_len
     for btype in cfg.layer_types():
-        if btype not in ("attn", "xattn"):
-            raise NotImplementedError(
-                f"{cfg.name}: layer type {btype!r} is not ported yet "
-                f"(ROADMAP §1 item 7)")
-        t = min(cfg.attn_window or kv_rows, kv_rows)
-        total += 2 * cfg.n_kv_heads * cfg.hd * t * dtype_bytes
+        if btype in ("attn", "xattn"):
+            t = min(cfg.attn_window or kv_rows, kv_rows)
+            total += 2 * cfg.n_kv_heads * cfg.hd * t * dtype_bytes
+        elif btype == "rec":
+            total += di * dtype_bytes
+        elif btype == "mamba":
+            total += (di * cfg.ssm_state + di * cfg.ssm_conv) * dtype_bytes
     if slot_len is not None:
         total += 2 * slot_len * 4        # int32 prompt row + output row
     return total

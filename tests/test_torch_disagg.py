@@ -209,7 +209,9 @@ def test_engines_share_one_set_of_weights_and_trace_the_handoffs(weights):
 def test_unported_parts_raise_with_their_roadmap_item(weights):
     """Parts whose modules are not ported raise, naming their ROADMAP item.
     The name is historical for ``plan=``: speculative decoding on the decode
-    engine is ported, so a plan now builds the decoder beside it."""
+    engine is ported, so a plan now builds the decoder beside it; and for
+    recurrent layers, which are ported too, so a hybrid config now builds
+    and only a cross-attention config is refused (item 7)."""
     plan = SpecPlan(draft_cfg=PCFG, draft_params=weights[1], k=2)
     spec = DisaggregatedEngineLoop(PCFG, weights[1], n_prefill_slots=1,
                                    n_decode_slots=1, max_seq=8, plan=plan,
@@ -218,8 +220,14 @@ def test_unported_parts_raise_with_their_roadmap_item(weights):
     # a self-draft shares the decode engine's weights
     assert spec.spec.draft.params["embed"] is spec.decode.params["embed"]
     hybrid = dataclasses.replace(PCFG, block_pattern=("rec", "attn"))
+    hybrid_params = PT.init_params(hybrid, 0, device="cpu")
+    built = DisaggregatedEngineLoop(hybrid, hybrid_params, n_prefill_slots=1,
+                                    n_decode_slots=1, max_seq=8,
+                                    device="cpu")
+    assert "rec" in built.decode.cache["layers"][0]
+    cross = dataclasses.replace(PCFG, block_pattern=("attn", "xattn"))
     with pytest.raises(NotImplementedError, match="item 7"):
-        DisaggregatedEngineLoop(hybrid, weights[1], n_prefill_slots=1,
+        DisaggregatedEngineLoop(cross, weights[1], n_prefill_slots=1,
                                 n_decode_slots=1, max_seq=8, device="cpu")
     dis = DisaggregatedEngineLoop(PCFG, weights[1], n_prefill_slots=1,
                                   n_decode_slots=1, max_seq=8, device="cpu")

@@ -50,7 +50,11 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                  "profiling.cache", "profiling.bench", "profiling.calibrate",
                  "profiling.pricer", "launch.profile", "launch.serve",
                  "serving.api", "configs.registry", "obs.export",
-                 "obs.watchdog"):
+                 "obs.watchdog", "models.moe", "models.ssm",
+                 "configs.phi35_moe", "configs.mixtral_8x7b",
+                 "configs.falcon_mamba_7b", "configs.recurrentgemma_2b",
+                 "configs.deepseek_coder_33b", "configs.granite_34b",
+                 "configs.minicpm_2b"):
         assert f"repro_torch.{name}" in modules
     benches = sorted(p.stem for p in (REPO / "benchmarks").glob(
         "bench_torch_*.py"))

@@ -243,6 +243,16 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_unported_layer_types_are_refused():
-    cfg = dataclasses.replace(PCFG, block_pattern=("rec", "attn"))
-    with pytest.raises(NotImplementedError, match="rec"):
-        PT.count_params(cfg)
+    """The name is historical: recurrent, Mamba and MoE layers are ported,
+    so what is refused now is cross-attention (a ``xattn`` layer), the
+    encoder-decoder and the vision front end, naming ROADMAP §1 item 7."""
+    hybrid = dataclasses.replace(PCFG, block_pattern=("rec", "attn"))
+    assert PT.count_params(hybrid) > 0
+    for cfg in (dataclasses.replace(PCFG, block_pattern=("attn", "xattn")),
+                dataclasses.replace(PCFG, cross_attn_every=2),
+                dataclasses.replace(PCFG, encoder_decoder=True),
+                dataclasses.replace(PCFG, frontend="vision")):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            PT.count_params(cfg)
+        with pytest.raises(NotImplementedError, match="cross-attention"):
+            PT.init_cache(cfg, 1, 8, device="cpu")
