@@ -97,9 +97,13 @@ Phases, each of which raises (and so exits nonzero) on a failed check:
              gated: the kernel is close to the plain version, not bitwise
              equal).  Under "ref", the JAX package's own impl, the dense
              layout's greedy tokens must equal the paged layout's bit for
-             bit; forced speculation (self-draft, k 2) is held against plain
-             decode and, with a row-count probe of qwen2's products, reported
-             (spec_vs_plain).
+             bit, and forced speculation's (self-draft, k 2, the verify
+             feeding 8 x 3 rows) must equal plain decode's bit for bit;
+             where they differ, spec_divergence names the first op whose
+             bits differ before the check fails (spec_vs_plain).  The same
+             at k 4 on 32 slots (32 x 5 rows) is reported, not gated, with
+             a row-count probe of qwen2's products and the first differing
+             op.
 8. serve-entry — repro_torch.serving.api.serve(), the entry point behind
              `python -m repro_torch.launch.serve`, on the full-width model
              (scale "full": all 28 layers, weights from seed 0), 8 requests
@@ -175,9 +179,36 @@ Phases, each of which raises (and so exits nonzero) on a failed check:
              to the first's; tok/s and peak memory.  The flash and paged
              launches of the phase must both be above 0.
 
-Every main-path phase (4, 4b, 6, 7, 8, 9, 10, 11) sets every kernel's launch
-count to 0 just before it and reads them all just after (4b's count covers
-its profile and its plan's run; 11 sums its runs, each counted so).  The
+12. train — training on the card (no hand-written kernel trains: the
+             JAX package trains with its plain "chunked" attention, whose
+             backward is lax, and its flash kernel has no VJP).
+             qwen2-1.5B at full width and depth (fp32 masters, bf16
+             compute, "chunked" attention, AdamW on the cosine schedule at
+             3e-3, SyntheticLM batches of 8 x 128): 10 train steps, 2 more
+             with int8 gradient compression and 1 with grad_accum 4; every
+             loss and gradient norm finite, every parameter leaf moved, the
+             leaves on the card; prints ms per step (median of the last 8
+             of the 10, synchronized), tokens/s and peak memory beside the
+             card's name and power limit.  ChunkedAttention's dq, dk and dv
+             at qwen2's heads (12 over 2, D 128, S 512, key chunks of 128,
+             fp32, causal, and with a window of 96) within 2e-4 of the
+             largest magnitude of dot attention's autograd gradients.  At
+             full width cut to 2 layers, 6 straight steps against 3 + save
+             + restore into a fresh state + 3: every parameter and moment
+             bitwise equal.  The JAX package's tiny config (2 layers, d 64,
+             vocab 64) on bigram data, 150 steps at cosine 1e-2: the loss
+             must fall by at least 0.8 nats.  The train CLI's own main()
+             (`python -m repro_torch.launch.train --scale full`) twice on
+             one checkpoint directory: 2 steps, then to step 3 with
+             --grad-accum 2; step 0's loss must be the train step's, every
+             loss finite, and the second run must log "[restore] resumed
+             at step 1".  torch.profiler splits one step's device time,
+             and the AdamW update's alone.
+
+Every main-path phase (4, 4b, 6, 7, 8, 9, 10, 11, 12) sets every kernel's
+launch count to 0 just before it and reads them all just after (4b's count
+covers its profile and its plan's run; 11 sums its runs, each counted so;
+12's must all be 0).  The
 last line is {"ok": true,
 "device": {...}}; the line before it holds the card's name and power limit,
 and the one before that the per-kernel JSON.  For the AlexNet kernels its
@@ -188,7 +219,7 @@ the 28 layers of one prefill forward (flash) or one decode step of the serve
 phase (paged), at the shapes those phases give them, and the launches are
 those of phase 6 (flash) and 8 (paged).  "launches_by_phase" gives every
 kernel's count in every main-path phase, phase 10's under "speculation",
-phase 11's under "families".
+phase 11's under "families", phase 12's under "train".
 Without a card, or outside a checkout of the repository, it exits nonzero
 before printing any result.  Imports nothing of JAX or of the JAX package.
 """
@@ -222,6 +253,11 @@ LAYER_RTOL, LOGP_ATOL = 3e-5, 2e-4       # ~10x the card's 2.8e-6, 1.5e-5
 # two plain prefill impls (dot, chunked) differ by as well
 PREFILL_RTOL, DECODE_RTOL = 0.1, 0.1
 PROMPT, GEN, SLOTS, PAGE = 128, 32, 8, 16            # the serve phase
+# phase 7's forced speculation under ref (slots, k, gated): the serve
+# workload's, gated; and a wide window, 32 slots at k 4 (choose_speculation
+# picks k up to 4: 160 rows), reported only, since cuBLAS rounds qwen2's
+# MLP down projection otherwise from 89 rows
+SPEC_RUNS = ((SLOTS, 2, True), (32, 4, False))
 # phase 8: the serve CLI's options for qwen2-1.5B at full width and depth
 SERVE_ENTRY = dict(scale="full", slots=SLOTS, prompt_len=PROMPT,
                    gen_len=GEN, requests=8, rate=1e9)
@@ -234,6 +270,10 @@ PREFILL_TOKENS = 512
 # weights ~42 GB and their bf16 copy ~21 GB on the 80 GB card), its
 # (query, kv) heads
 PHI_LAYERS, PHI_HEADS = 8, (32, 8)
+# phase 12: the train CLI's defaults (batch 8 x seq 128), 10 steps timed;
+# the flash backward at qwen2's (query, kv) heads over key chunks of 128
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 10
+QWEN2_HEADS, TRAIN_ATTN_S, TRAIN_KV_CHUNK, TRAIN_WINDOW = (12, 2), 512, 128, 96
 QUEUE_SLEEP_CYCLES = 20_000_000     # ~10 ms at the H100's 1.98 GHz boost
 FLUSH_BYTES = 256 << 20             # written between calls to empty the L2
 REPLACES = {
@@ -1297,9 +1337,9 @@ def phase_serve(torch, kern, cfg, params, tag="serve", speculate=True):
                                   prompt_lens=(PROMPT,), gen_lens=(GEN,),
                                   seed=3)
 
-    def loop_for(c, loop_cls=EngineLoop, **kw):
+    def loop_for(c, loop_cls=EngineLoop, n_slots=SLOTS, **kw):
         """A loop with its step captured (warmup), ready to run."""
-        loop = loop_cls(c, params, n_slots=SLOTS, max_seq=max_seq,
+        loop = loop_cls(c, params, n_slots=n_slots, max_seq=max_seq,
                         block_size=PAGE, **kw)
         loop.warmup()
         torch.cuda.synchronize()
@@ -1399,8 +1439,8 @@ def identity_gates(torch, cfg, params, ref_reqs, workload, loop_for, serve,
                    tag, speculate):
     """The JAX package's serving identities under its own impl ("ref"), on
     the card: the dense layout's tokens equal the paged layout's bit for
-    bit (gated), and forced speculation (self-draft, k 2) against plain
-    decode (see spec_vs_plain)."""
+    bit (gated), and forced speculation (self-draft, at each SPEC_RUNS
+    slot count and depth) against plain decode (see spec_vs_plain)."""
     import dataclasses
     from repro_torch.serving import SpecPlan, SpeculativeEngineLoop
     from repro_torch.serving.request import synthetic_workload
@@ -1417,46 +1457,53 @@ def identity_gates(torch, cfg, params, ref_reqs, workload, loop_for, serve,
     if not speculate:
         return
 
-    def mixed():
-        """The serve CLI's workload (phase 8's): speculation engages only
-        once bursts stop at staggered completions."""
-        return synthetic_workload(SERVE_ENTRY["requests"], rate=1e9,
-                                  vocab=cfg.vocab,
+    def mixed(n):
+        """The serve CLI's workload (phase 8's) over ``n`` requests:
+        speculation engages only once bursts stop at staggered
+        completions."""
+        return synthetic_workload(n, rate=1e9, vocab=cfg.vocab,
                                   prompt_lens=(PROMPT // 2, PROMPT),
                                   gen_lens=(GEN // 8, GEN // 2, GEN), seed=1)
 
-    plain_reqs, spec_reqs = mixed(), mixed()
-    serve(loop_for(ref_cfg), plain_reqs)
-    loop = loop_for(ref_cfg, plan=SpecPlan(ref_cfg, params, k=2,
-                                           forced=True),
-                    loop_cls=SpeculativeEngineLoop)
-    summary = serve(loop, spec_reqs)
-    spec_vs_plain(torch, cfg, params, plain_reqs, spec_reqs, loop, summary)
+    for slots, k, gated in SPEC_RUNS:
+        n = max(SERVE_ENTRY["requests"], slots)
+        plain_reqs, spec_reqs = mixed(n), mixed(n)
+        serve(loop_for(ref_cfg, n_slots=slots), plain_reqs)
+        loop = loop_for(ref_cfg, n_slots=slots,
+                        plan=SpecPlan(ref_cfg, params, k=k, forced=True),
+                        loop_cls=SpeculativeEngineLoop)
+        summary = serve(loop, spec_reqs)
+        spec_vs_plain(torch, cfg, params, plain_reqs, spec_reqs, loop,
+                      summary, slots, k, gated)
 
 
 def spec_vs_plain(torch, cfg, params, plain_reqs, spec_reqs, loop,
-                  summary) -> None:
-    """Forced speculation under ref against plain decode under ref, the
-    agreement reported, not gated (ROADMAP §3 logs the fault).  Where the
-    tokens differ: for each of a layer's products and the head (qwen2's
+                  summary, slots: int, k: int, gated: bool) -> None:
+    """Forced speculation under ref against plain decode under ref: with
+    ``gated`` the tokens must be equal bit for bit (the JAX package's
+    identity; the verify runs its norms and attention per window offset in
+    the plain step's shapes, its products over all slots x (k+1) rows).
+    Reported: for each of a layer's products and the head (qwen2's
     shapes, bf16, random rows), the smallest row count m whose first row
-    differs from the 1-row product, and whether rows 0-7 of a 24-row
-    product equal the 8-row product's (the verify feeds 8 x 3 rows where a
-    plain step feeds 8); then spec_divergence at full depth and, cut to 2
-    layers, by window size."""
+    differs from the 1-row product, and whether the first ``slots`` rows of
+    a slots x (k+1)-row product equal the slots-row product's (the verify
+    feeds slots x (k+1) rows where a plain step feeds slots).  Where the
+    tokens differ: spec_divergence at full depth and, when gated, cut to
+    2 layers by window size before the check fails."""
     same = ([r.output for r in plain_reqs]
             == [r.output for r in spec_reqs])
     spec = loop.spec
-    print(f"[serve] {cfg.name} ref: forced speculation (self-draft, k 2, "
+    rows_v = slots * (k + 1)
+    print(f"[serve] {cfg.name} ref: forced speculation (self-draft, "
+          f"{slots} slots, k {k}: the verify feeds {rows_v} rows; "
           f"{spec.n_rounds} rounds, acceptance {spec.acceptance_rate}) "
           f"tokens bitwise equal to plain decode: {same} "
-          f"({_token_agreement(plain_reqs, spec_reqs):.4f} of tokens); "
+          f"({_token_agreement(plain_reqs, spec_reqs):.4f} of tokens"
+          f"{'' if gated else '; reported, not gated'}); "
           f"requests_done={summary['requests_done']}", flush=True)
     check(summary["requests_done"] == len(spec_reqs) and spec.n_rounds > 0,
           f"speculation under ref: {summary['requests_done']} requests "
           f"done, {spec.n_rounds} rounds")
-    if same:
-        return
     gen = torch.Generator("cuda").manual_seed(8)
     layer = params["layers"][0]
     products = (("x@wq", layer["attn"]["wq"]), ("x@wk", layer["attn"]["wk"]),
@@ -1467,26 +1514,30 @@ def spec_vs_plain(torch, cfg, params, plain_reqs, spec_reqs, loop,
     rows = []
     for name, w in products:
         w = w.to(torch.bfloat16)
-        x = torch.randn((24, w.shape[0]), generator=gen, device="cuda").to(
-            torch.bfloat16)
+        x = torch.randn((rows_v, w.shape[0]), generator=gen,
+                        device="cuda").to(torch.bfloat16)
         one = x[:1] @ w
-        first = next((m for m in range(2, 25)
+        first = next((m for m in range(2, rows_v + 1)
                       if not torch.equal((x[:m] @ w)[:1], one)), None)
-        eight = torch.equal((x @ w)[:8], x[:8] @ w)
+        equal = torch.equal((x @ w)[:slots], x[:slots] @ w)
         rows.append(f"{name} {tuple(w.shape)}: first m={first}, "
-                    f"24 vs 8 rows equal={eight}")
+                    f"{rows_v} vs {slots} rows equal={equal}")
     torch.cuda.synchronize()
     print("[serve] row-count probe (row 0 of an (m, K) @ (K, N) bf16 "
           "product against the 1-row product): " + "; ".join(rows),
           flush=True)
+    if same:
+        return
     # the verify's step against sequential steps, op by op: at full depth
-    # for phase 7's shape, then at the model's width cut to 2 layers for
+    # for this window, then at the model's width cut to 2 layers for
     # smaller windows (b slots x m tokens), smallest first
-    found = spec_divergence(torch, cfg, params, SLOTS, 3)
-    print(f"[serve] verify ({SLOTS} slots x 3 tokens, ref) against 3 plain "
-          f"steps, "
+    found = spec_divergence(torch, cfg, params, slots, k + 1)
+    print(f"[serve] verify ({slots} slots x {k + 1} tokens, ref) against "
+          f"{k + 1} plain steps, "
           f"first op whose bits differ (op, layer, offset, the verify's "
           f"operand shape): {found}", flush=True)
+    if not gated:
+        return
     import dataclasses
     cut = dataclasses.replace(cfg, n_layers=2)
     cut_params = dict(params, layers=params["layers"][:2])
@@ -1495,12 +1546,15 @@ def spec_vs_plain(torch, cfg, params, plain_reqs, spec_reqs, loop,
         shapes[f"{b}x{m}"] = spec_divergence(torch, cut, cut_params, b, m)
     print(f"[serve] the same at 2 layers by window (slots x tokens): "
           f"{shapes}", flush=True)
+    check(False, f"under the ref impl forced speculation's tokens differ "
+          f"from plain decode's at {slots} slots x k {k} (first differing "
+          f"op: {found})")
 
 
 # the ops of a layer, in the order a verify step and a plain step call
 # them, that spec_divergence compares (each looked up at call time)
-TRACED_OPS = (("T", "rmsnorm"), ("T", "_project_qkv"), ("T", "apply_rope"),
-              ("attn", "paged_decode_attention_multi"),
+TRACED_OPS = (("T", "rmsnorm"), ("T", "rmsnorm_multi"), ("T", "_project_qkv"),
+              ("T", "apply_rope"), ("attn", "paged_decode_attention_multi"),
               ("attn", "paged_decode_attention"), ("T", "_merge_heads"),
               ("T", "swiglu"))
 
@@ -2353,6 +2407,283 @@ def serve_family(torch, kern, api, cfg, params, layouts, total, smi: str):
           f"{same}")
 
 
+def _fingerprint(torch, params) -> list:
+    """Each leaf's float64 sum and sum of magnitudes: a leaf whose values
+    change changes them."""
+    from repro_torch.tree import tree_leaves
+    return [(float(t.double().sum()), float(t.double().abs().sum()))
+            for t in tree_leaves(params)]
+
+
+def train_steps(torch, step, params, opt, err, pipe, n: int):
+    """``n`` train steps, each synchronized: (params, opt, err, [(loss,
+    gnorm)], [seconds per step])."""
+    metrics, seconds = [], []
+    for _ in range(n):
+        batch = next(pipe)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, err, m = step(params, opt, err, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    return params, opt, err, metrics, seconds
+
+
+def flash_backward_gate(torch) -> None:
+    """ChunkedAttention's gradients at qwen2's heads against dot
+    attention's autograd, fp32: causal, and with a window of 96."""
+    from repro_torch.models import attention as attn_lib
+
+    gen = torch.Generator("cuda").manual_seed(12)
+    b, hq, hk, s, d = 2, QWEN2_HEADS[0], QWEN2_HEADS[1], TRAIN_ATTN_S, 128
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q, dout = draw(b, hq, s, d), draw(b, hq, s, d)
+    k, v = draw(b, hk, s, d), draw(b, hk, s, d)
+    for window in (None, TRAIN_WINDOW):
+        grads = {}
+        for impl in ("chunked", "dot"):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = attn_lib.attend(*leaves, impl=impl, causal=True,
+                                  window=window, kv_chunk=TRAIN_KV_CHUNK)
+            out.backward(dout)
+            grads[impl] = [t.grad for t in leaves]
+        rels = [_rel(g, w) for g, w in zip(grads["chunked"], grads["dot"])]
+        print(f"[train] flash backward (S {s}, {s // TRAIN_KV_CHUNK} key "
+              f"chunks, window {window}, fp32) against dot autograd: dq, "
+              f"dk, dv max_rel_err " + ", ".join(f"{r:.3e}" for r in rels),
+              flush=True)
+        check(max(rels) <= TOL["float32"], f"the flash backward differs "
+              f"from dot's gradients by {max(rels):.3e} (window {window})")
+
+
+def resume_gate(torch, qwen2) -> None:
+    """qwen2-1.5B at full width cut to 2 layers: 6 straight steps against
+    3 + save + restore into a fresh state + 3, bitwise."""
+    import dataclasses
+    import shutil
+    from repro_torch.checkpoint import restore_latest, save_checkpoint
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw, schedules
+    from repro_torch.tree import tree_paths
+
+    cfg = dataclasses.replace(qwen2, n_layers=2)
+    init_opt, update = adamw.make_optimizer(schedules.constant(1e-3),
+                                            decay=T.decay_mask(cfg))
+    step = make_train_step(cfg, update)
+    dc = DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                    vocab=cfg.vocab)
+
+    def fresh():
+        p = T.init_params(cfg, seed=0)
+        return p, init_opt(p)
+
+    def run(p, o, pipe, n):
+        for _ in range(n):
+            p, o, _, _ = step(p, o, None, next(pipe))
+        return p, o
+
+    pa, oa = run(*fresh(), SyntheticLM(dc), 6)
+    pipe = SyntheticLM(dc)
+    pb, ob = run(*fresh(), pipe, 3)
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    save_checkpoint(str(ckpt), 3, {"p": pb, "o": ob},
+                    extra={"data": pipe.state()}, keep=1)
+    del pb, ob
+    pc, oc = fresh()
+    _, state, extra = restore_latest(str(ckpt), {"p": pc, "o": oc})
+    pipe = SyntheticLM(dc)
+    pipe.restore(extra["data"])
+    seconds = time.perf_counter() - t0
+    shutil.rmtree(ckpt, ignore_errors=True)
+    pc, oc = run(state["p"], state["o"], pipe, 3)
+    a, c = tree_paths({"p": pa, "o": oa}), tree_paths({"p": pc, "o": oc})
+    differ = [p for (p, x), (_, y) in zip(a, c) if not torch.equal(x, y)]
+    print(f"[train] {cfg.name} 2 layers at full width: 6 steps against 3 + "
+          f"save + restore + 3 ({T.count_params(cfg):,} parameters, save "
+          f"and restore {seconds:.1f} s): {len(a) - len(differ)} of "
+          f"{len(a)} leaves bitwise equal", flush=True)
+    check(not differ and len(a) == len(c), f"resume is not bitwise: "
+          f"{['/'.join(p) for p in differ[:5]]}")
+
+
+def train_cli(torch, first_loss: float) -> None:
+    """The train CLI's own code on the card: ``repro_torch.launch.train``'s
+    main() at full width and depth (--scale full), 2 steps with a
+    checkpoint, then a second invocation to step 3 (--grad-accum 2) that
+    restores it.  Step 0's loss must be the train step's (``first_loss``),
+    every loss finite, and the second run must resume at step 1."""
+    import contextlib
+    import io
+    import re
+    import shutil
+    from repro_torch.launch import train
+
+    ckpt = ROOT / "build" / "train_cli_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    common = ["--scale", "full", "--ckpt-dir", str(ckpt), "--ckpt-interval",
+              "100", "--log-every", "1"]
+    outs = []
+    t0 = time.perf_counter()
+    for extra in (["--steps", "2"], ["--steps", "3", "--grad-accum", "2"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            train.main(common + extra)
+        outs.append(buf.getvalue())
+        _free(torch)
+    seconds = time.perf_counter() - t0
+    shutil.rmtree(ckpt, ignore_errors=True)
+    step_re = re.compile(r"^step\s+(\d+) loss (\S+) lr \S+ gnorm (\S+)$",
+                         re.M)
+    logged = [[(int(a), float(b), float(c)) for a, b, c in step_re.findall(o)]
+              for o in outs]
+    print(f"[train] CLI (--scale full) twice, checkpoint at step 1 "
+          f"({seconds:.1f} s): " + " | ".join(" / ".join(line for line in o.splitlines()
+                                            if line.strip())
+                                for o in outs), flush=True)
+    check([s for s, _, _ in logged[0]] == [0, 1]
+          and [s for s, _, _ in logged[1]] == [1, 2],
+          f"the train CLI logged steps {logged}")
+    check(all(np.isfinite(x) for run in logged for _, *m in run for x in m),
+          f"the train CLI logged a non-finite loss or gnorm: {logged}")
+    check(abs(logged[0][0][1] - first_loss) <= 1e-4,
+          f"the CLI's step 0 loss {logged[0][0][1]} is not the train "
+          f"step's {first_loss:.4f}")
+    check("[restore] resumed at step 1" in outs[1].splitlines()
+          and not any(line.startswith("[restore]")
+                      for line in outs[0].splitlines()),
+          "the train CLI did not resume at step 1 from its checkpoint")
+    check(all(o.splitlines()[-1].startswith("done: ") for o in outs),
+          "the train CLI did not finish")
+
+
+def phase_train(torch, kern, smi: str):
+    """12. Training on the card: qwen2-1.5B at full width and depth, the
+    flash backward, a bitwise resume and the tiny model's learning.
+    Returns the phase's launches by kernel (all 0)."""
+    from repro_torch.configs.qwen2_1_5b import CONFIG as qwen2
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.launch.train import _schedule
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw, compression, schedules
+    from repro_torch.tree import tree_leaves
+
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kern.values():
+        fn.launches = 0
+    t_phase = time.perf_counter()
+
+    # (a) qwen2-1.5B at full width and depth
+    cfg = qwen2
+    steps = TRAIN_STEPS + 2 + 1
+    init_opt, update = adamw.make_optimizer(_schedule("cosine", steps),
+                                            decay=T.decay_mask(cfg))
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0)
+    opt = init_opt(params)
+    before = _fingerprint(torch, params)
+    check(all(t.is_cuda for t in tree_leaves((params, opt))),
+          "a parameter or moment is not on the card")
+    pipe = SyntheticLM(DataConfig(global_batch=TRAIN_BATCH,
+                                  seq_len=TRAIN_SEQ, vocab=cfg.vocab))
+    torch.cuda.synchronize()
+    print(f"[train] {cfg.name}: {T.count_params(cfg):,} parameters in fp32 "
+          f"masters from seed 0, AdamW state, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    step = make_train_step(cfg, update)
+    params, opt, _, metrics, seconds = train_steps(
+        torch, step, params, opt, None, pipe, TRAIN_STEPS)
+    params, opt, _, m8, _ = train_steps(
+        torch, step, params, opt, compression.init_error(params), pipe, 2)
+    params, opt, _, m4, s4 = train_steps(
+        torch, make_train_step(cfg, update, grad_accum=4), params, opt,
+        None, pipe, 1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = statistics.median(seconds[-8:]) * 1e3
+    n_params, tokens = T.count_params(cfg), TRAIN_BATCH * TRAIN_SEQ
+    # least times: a step's 6·N·tokens operations at the bf16 peak; AdamW
+    # reads parameters, gradients and both moments and writes three back
+    step_bound_ms = 6 * n_params * tokens / BF16_PEAK * 1e3
+    adamw_bound_ms = 28 * n_params / HBM_BW * 1e3
+    losses = [m for m, _ in metrics + m8 + m4]
+    gnorms = [g for _, g in metrics + m8 + m4]
+    first_loss = losses[0]
+    print(f"[train] {cfg.name} batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+          f"{cfg.attention_impl} attention (attn_chunk {cfg.attn_chunk}), "
+          f"remat {cfg.remat}: ms/step={ms:.2f} (median of steps "
+          f"{TRAIN_STEPS - 7}-{TRAIN_STEPS}; first {seconds[0] * 1e3:.1f}) "
+          f"tokens/s={TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.1f} "
+          f"peak_memory_gib={peak:.2f}; int8 steps {m8}, grad_accum 4 step "
+          f"{s4[0] * 1e3:.1f} ms {m4} ({smi})", flush=True)
+    print(f"[train] losses {[round(x, 4) for x in losses]} gnorms "
+          f"{[round(x, 3) for x in gnorms]}; bounds: step "
+          f"{step_bound_ms:.3f} ms (operations, 6 x {n_params:,} x {tokens} "
+          f"at {BF16_PEAK / 1e12:.0f} TFLOP/s), AdamW {adamw_bound_ms:.3f} "
+          f"ms (bytes, 28 x {n_params:,} at {HBM_BW / 1e12:.2f} TB/s)",
+          flush=True)
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"non-finite loss or gradient norm: {losses}, {gnorms}")
+    after = _fingerprint(torch, params)
+    still = [i for i, (x, y) in enumerate(zip(before, after)) if x == y]
+    check(not still and int(opt.step) == steps,
+          f"{len(still)} parameter leaves did not move; step {int(opt.step)}")
+    check(all(t.is_cuda for t in tree_leaves((params, opt))),
+          "a parameter or moment left the card")
+    # where a step's time goes: one whole step, then the optimizer alone
+    batch = next(pipe)
+    device_profile(torch, lambda: step(params, opt, None, batch),
+                   "train step")
+    _, grads = loss_and_grads(params, cfg, batch)
+    device_profile(torch, lambda: update(grads, opt, params), "train adamw")
+    del params, opt, step, metrics, grads
+    _free(torch)
+
+    # (b) the flash backward, (c) a bitwise resume
+    flash_backward_gate(torch)
+    resume_gate(torch, qwen2)
+    _free(torch)
+
+    # (d) the JAX package's tiny config learns the bigram data
+    tiny = T.ModelConfig(name="tiny", n_layers=2, d_model=64, n_heads=4,
+                         n_kv_heads=2, d_ff=128, vocab=64, scan_chunk=16,
+                         attention_impl="dot", remat=False)
+    init_opt, update = adamw.make_optimizer(
+        schedules.cosine_schedule(1e-2, 10, 150), decay=T.decay_mask(tiny))
+    params = T.init_params(tiny, seed=0)
+    params, _, _, metrics, seconds = train_steps(
+        torch, make_train_step(tiny, update), params, init_opt(params), None,
+        SyntheticLM(DataConfig(global_batch=8, seq_len=32, vocab=64)), 150)
+    losses = [m for m, _ in metrics]
+    print(f"[train] tiny (2 layers, d 64, vocab 64) on bigram data, 150 "
+          f"steps: loss {losses[0]:.4f} -> min of the last 10 "
+          f"{min(losses[-10:]):.4f} ({statistics.median(seconds) * 1e3:.2f}"
+          f" ms/step)", flush=True)
+    check(losses[0] > 3.5 and min(losses[-10:]) < losses[0] - 0.8,
+          f"the tiny model did not learn: {losses[::15]}")
+
+    # (e) the train CLI's own code: full width and depth, checkpoint,
+    # resume
+    train_cli(torch, first_loss)
+    _free(torch)
+
+    # (f) no hand-written kernel trains
+    launches = {name: fn.launches for name, fn in kern.items()}
+    print(f"[train] launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(not any(launches.values()), f"training launched {launches}: no "
+          "kernel of the port has a backward")
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -2427,11 +2758,14 @@ def main() -> None:
     del params
     # 11. the MoE and recurrent families
     family_launches = phase_families(torch, kern, smi)
+    # 12. training
+    train_launches = phase_train(torch, kern, smi)
     by_phase = {"alexnet": launches, "measured": measured_launches,
                 "prefill": prefill_launches, "serve": serve_launches,
                 "serve_entry": entry_launches,
                 "placement": placement_launches,
-                "speculation": spec_launches, "families": family_launches}
+                "speculation": spec_launches, "families": family_launches,
+                "train": train_launches}
     home = {"flash_attention": "prefill", "paged_attention": "serve_entry"}
 
     rows = []

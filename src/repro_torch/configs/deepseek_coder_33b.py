@@ -8,7 +8,7 @@ CONFIG = ModelConfig(
     name="deepseek-coder-33b",
     n_layers=62, d_model=7168, n_heads=56, n_kv_heads=8, d_ff=19200,
     vocab=32256, rope_theta=1e5, tie_embeddings=False,
-    attention_impl="chunked", attn_chunk=2048,
+    attention_impl="chunked", attn_chunk=2048, grad_accum=4,
 )
 
 SMOKE = ModelConfig(

@@ -8,7 +8,7 @@ CONFIG = ModelConfig(
     name="granite-34b",
     n_layers=88, d_model=6144, n_heads=48, n_kv_heads=1, d_ff=24576,
     vocab=49152, gated_mlp=False, tie_embeddings=False,
-    attention_impl="chunked", attn_chunk=2048,
+    attention_impl="chunked", attn_chunk=2048, grad_accum=4,
 )
 
 SMOKE = ModelConfig(

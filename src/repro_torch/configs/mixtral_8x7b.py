@@ -11,7 +11,7 @@ CONFIG = ModelConfig(
     n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8, d_ff=14336,
     vocab=32000, n_experts=8, moe_top_k=2, attn_window=4096,
     rope_theta=1e6, tie_embeddings=False,
-    attention_impl="chunked", attn_chunk=2048,
+    attention_impl="chunked", attn_chunk=2048, grad_accum=4,
 )
 
 SMOKE = ModelConfig(

@@ -9,7 +9,7 @@ CONFIG = ModelConfig(
     name="phi3.5-moe",
     n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8, d_ff=6400,
     vocab=32064, n_experts=16, moe_top_k=2, tie_embeddings=False,
-    attention_impl="chunked", attn_chunk=2048,
+    attention_impl="chunked", attn_chunk=2048, grad_accum=4,
 )
 
 SMOKE = ModelConfig(

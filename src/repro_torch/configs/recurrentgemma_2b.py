@@ -12,7 +12,7 @@ CONFIG = ModelConfig(
     name="recurrentgemma-2b",
     n_layers=26, d_model=2560, n_heads=10, n_kv_heads=1, d_ff=7680,
     vocab=256000, block_pattern=("rec", "rec", "attn"), attn_window=2048,
-    ssm_expand=1, tie_embeddings=True,
+    ssm_expand=1, tie_embeddings=True, grad_accum=4,
     attention_impl="chunked", attn_chunk=2048, scan_chunk=512,
 )
 

@@ -4,10 +4,12 @@ Full-sequence attention (prefill), selected by ``ModelConfig.attention_impl``:
 
 * ``dot``     — plain masked dot-product attention; materializes (S, T).
 * ``chunked`` — the flash algorithm in plain PyTorch: an online softmax over
-                key chunks, never more than (S, kv_chunk) scores at once.
-                Forward only.
+                key chunks, never more than (S, kv_chunk) scores at once,
+                with the flash backward (``ChunkedAttention``).
 * ``hopper``  — the hand-written flash-attention kernel
                 (kernels/flash_attention.py) through ``kernels.ops``.
+                Forward only, as the JAX package's Pallas kernel: asking
+                for a gradient through it raises.
 
 Single-token decode attention against a dense cache (``decode_attention``)
 or a block-paged arena (``paged_decode_attention``, impl ``ref`` or
@@ -66,16 +68,13 @@ def dot_attention(q, k, v, *, causal: bool = True,
     return out.reshape(b, hq, s, d).to(q.dtype)
 
 
-def chunked_attention(q, k, v, *, causal: bool = True,
-                      window: Optional[int] = None,
-                      kv_chunk: int = 2048) -> torch.Tensor:
-    """The flash algorithm in plain PyTorch (forward only): a loop over key
-    chunks with a running max, denominator and fp32 accumulator.  The last
-    chunk may be short; nothing is padded."""
+def _chunked_fwd(q, k, v, causal: bool, window: Optional[int], bk: int):
+    """Online-softmax forward over key chunks of ``bk`` (the last may be
+    short; nothing is padded).  Returns (out (B,HK,G,S,D) fp32, lse
+    (B,HK,G,S,1), 0 for a row with no valid key)."""
     b, hq, s, d = q.shape
     hk, t = k.shape[1], k.shape[2]
     g = hq // hk
-    bk = min(kv_chunk, t)
     qg = _gqa_fold(q, hk).float() * (1.0 / (d ** 0.5))     # (B,HK,G,S,D)
     m = torch.full((b, hk, g, s, 1), _NEG_INF, device=q.device)
     l = torch.zeros((b, hk, g, s, 1), device=q.device)
@@ -93,8 +92,64 @@ def chunked_attention(q, k, v, *, causal: bool = True,
         l = l * alpha + p.sum(dim=-1, keepdim=True)
         acc = acc * alpha + torch.einsum("bkgst,bktd->bkgsd", p, vb)
         m = m_new
-    out = acc / torch.where(l == 0.0, 1.0, l)
-    return out.reshape(b, hq, s, d).to(q.dtype)
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    lse = torch.where(l == 0.0, 0.0, m + torch.log(l_safe))
+    return acc / l_safe, lse
+
+
+class ChunkedAttention(torch.autograd.Function):
+    """The flash algorithm with the flash backward: the forward saves (q, k,
+    v, out, lse), O(S) residuals, and the backward recomputes each key
+    chunk's probabilities from the lse and sums dq, dk and dv in fp32 (the
+    JAX package's ``_cv_fwd`` / ``_cv_bwd``).  dk and dv cover exactly the
+    T key rows; the short last chunk is sliced, not padded."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int],
+                kv_chunk: int):
+        b, hq, s, d = q.shape
+        bk = min(kv_chunk, k.shape[2])
+        out, lse = _chunked_fwd(q, k, v, causal, window, bk)
+        ctx.save_for_backward(q, k, v, out.to(q.dtype), lse)
+        ctx.causal, ctx.window, ctx.bk = causal, window, bk
+        return out.reshape(b, hq, s, d).to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, bk = ctx.causal, ctx.window, ctx.bk
+        b, hq, s, d = q.shape
+        hk, t = k.shape[1], k.shape[2]
+        scale = 1.0 / (d ** 0.5)
+        qg = _gqa_fold(q, hk).float() * scale                # (B,HK,G,S,D)
+        dof = _gqa_fold(dout, hk).float()                    # (B,HK,G,S,D)
+        delta = torch.sum(dof * out.float(), dim=-1, keepdim=True)
+        dq = torch.zeros_like(qg)
+        dks, dvs = [], []
+        for k0 in range(0, t, bk):
+            kb = k[:, :, k0:k0 + bk].float()
+            vb = v[:, :, k0:k0 + bk].float()
+            mask = _mask(s, 0, torch.arange(k0, k0 + kb.shape[2],
+                                            device=q.device), causal, window)
+            logits = torch.einsum("bkgsd,bktd->bkgst", qg, kb)
+            p = torch.exp(torch.where(mask, logits, _NEG_INF) - lse) * mask
+            dvs.append(torch.einsum("bkgst,bkgsd->bktd", p, dof))
+            dp = torch.einsum("bkgsd,bktd->bkgst", dof, vb)
+            ds = p * (dp - delta)                            # d(logits)
+            dq = dq + torch.einsum("bkgst,bktd->bkgsd", ds, kb) * scale
+            dks.append(torch.einsum("bkgst,bkgsd->bktd", ds, qg))
+        return (dq.reshape(b, hq, s, d).to(q.dtype),
+                torch.cat(dks, dim=2).to(k.dtype),
+                torch.cat(dvs, dim=2).to(v.dtype), None, None, None)
+
+
+def chunked_attention(q, k, v, *, causal: bool = True,
+                      window: Optional[int] = None,
+                      kv_chunk: int = 2048) -> torch.Tensor:
+    """The flash algorithm in plain PyTorch: a loop over key chunks with a
+    running max, denominator and fp32 accumulator, differentiable through
+    :class:`ChunkedAttention`'s flash backward."""
+    return ChunkedAttention.apply(q, k, v, causal, window, kv_chunk)
 
 
 def hopper_attention(q, k, v, *, causal: bool = True,
@@ -112,6 +167,13 @@ def attend(q, k, v, *, impl: str = "dot", causal: bool = True,
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  kv_chunk=kv_chunk)
     if impl == "hopper":
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            raise NotImplementedError(
+                "attention_impl 'hopper' has no backward: the flash-attention "
+                "kernel is forward only, in the JAX package too (its Pallas "
+                "kernel has no VJP); train with attention_impl 'chunked' or "
+                "'dot'")
         return hopper_attention(q, k, v, causal=causal, window=window)
     if impl != "dot":
         raise ValueError(f"unknown attention impl {impl!r}")
@@ -177,8 +239,8 @@ def paged_decode_attention(q, k_arena, v_arena, block_tables, pos, *,
     return decode_attention(q, k, v, pos=pos, window=None)
 
 
-def decode_attention_multi(q, k_cache, v_cache, *,
-                           pos: torch.Tensor) -> torch.Tensor:
+def decode_attention_multi(q, k_cache, v_cache, *, pos: torch.Tensor,
+                           stepwise: bool = True) -> torch.Tensor:
     """M-token verification attention against a cache.
 
     q: (B, HQ, M, D); caches: (B, HK, T, D).  ``pos`` is a (B,) tensor of
@@ -191,15 +253,19 @@ def decode_attention_multi(q, k_cache, v_cache, *,
     Windowed layers are unsupported: the rolling buffer's write-back
     overlaps itself inside one multi-token window.
 
-    The same no-upcast rule as :func:`decode_attention`: q is cast to the
-    cache dtype, products of cache-dtype values are summed in fp32.  The
-    window's offsets sit on the batch side of the contractions, (B, M, HK)
-    products of (G, D) @ (D, T) each, the shapes a single-token step
-    contracts, so on the CPU every offset's numbers are that step's bit for
-    bit; one (G * M, D) product per (slot, head) takes another GEMM route
-    there and rounds differently, which would break speculation's identity
-    with plain decoding.
+    ``stepwise`` contracts each window offset in the plain step's own
+    shapes: offset i is :func:`decode_attention` on ``q[:, :, i:i+1]`` at
+    ``pos + i``, so its (B, HK, G, D) @ (B, HK, T, D) products are the ones
+    a single-token step runs, and on the CPU and the card alike every
+    offset's attention is that step's bit for bit.  False batches the
+    offsets, (B, M, HK) products of (G, D) @ (D, T), in one call: the same
+    numbers on the CPU, but the card's GEMM library rounds a batch count
+    that large otherwise.
     """
+    if stepwise:
+        return torch.cat([decode_attention(q[:, :, i:i + 1].contiguous(),
+                                           k_cache, v_cache, pos=pos + i)
+                          for i in range(q.shape[2])], dim=2)
     b, hq, m, d = q.shape
     hk, t = k_cache.shape[1], k_cache.shape[2]
     qg = _gqa_fold(q, hk).permute(0, 3, 1, 2, 4)            # (B,M,HK,G,D)
@@ -219,7 +285,8 @@ def decode_attention_multi(q, k_cache, v_cache, *,
 
 
 def paged_decode_attention_multi(q, k_arena, v_arena, block_tables, pos, *,
-                                 max_seq: int) -> torch.Tensor:
+                                 max_seq: int,
+                                 stepwise: bool = True) -> torch.Tensor:
     """M-token verification attention against a block-paged cache.
 
     Shapes as :func:`paged_decode_attention` with q: (B, HQ, M, D).  Only
@@ -231,4 +298,4 @@ def paged_decode_attention_multi(q, k_arena, v_arena, block_tables, pos, *,
     from ..kernels.ref import paged_gather
     k = paged_gather(k_arena, block_tables, max_seq)
     v = paged_gather(v_arena, block_tables, max_seq)
-    return decode_attention_multi(q, k, v, pos=pos)
+    return decode_attention_multi(q, k, v, pos=pos, stepwise=stepwise)

@@ -14,7 +14,9 @@ list — layer i is ``blocks[i % U][i // U]`` for the n_super·U layers of
 whole pattern units and ``rem[i - n_super·U]`` after them — and checks
 every shape against ``transformer.param_shapes``.  An MoE layer's expert
 stacks keep their leading expert axis.  :func:`state_from_numpy` unstacks a
-decode cache of the JAX package the same way.
+decode cache of the JAX package the same way, and
+:func:`opt_state_from_numpy` its AdamW moments (its gradients, a tree of
+the parameters' layout, go through :func:`params_from_numpy`).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import torch
 
 from ..core.engines import check_layer_params
 from ..core.layer_model import NetworkSpec
+from ..optim.adamw import AdamWState
 from .transformer import ModelConfig, map_params, param_shapes
 
 
@@ -65,8 +68,8 @@ def _unstack(cfg: ModelConfig, blocks, rem) -> List[Any]:
     return layers
 
 
-def _lm_params(cfg: ModelConfig, tree: Mapping[str, Any],
-               device) -> Dict[str, Any]:
+def _lm_params(cfg: ModelConfig, tree: Mapping[str, Any], device,
+               dtype=None) -> Dict[str, Any]:
     flat = {k: _plain(v) for k, v in tree.items() if k != "decoder"}
     flat["layers"] = _unstack(cfg, tree["decoder"]["blocks"],
                               tree["decoder"]["rem"])
@@ -75,9 +78,23 @@ def _lm_params(cfg: ModelConfig, tree: Mapping[str, Any],
 
     def tensor(_, a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(
-            device=device, dtype=cfg.param_dtype)
+            device=device, dtype=dtype or cfg.param_dtype)
 
     return map_params(tensor, flat)
+
+
+def opt_state_from_numpy(cfg: ModelConfig, state, *,
+                         device="cuda") -> AdamWState:
+    """The JAX package's ``AdamWState`` (step, and mu and nu in its stacked
+    parameter layout; numpy leaves) as the port's: the step as an int32
+    scalar, the moments unstacked as :func:`params_from_numpy` unstacks the
+    parameters, in fp32."""
+    step, mu, nu = state
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=device),
+        mu=_lm_params(cfg, mu, device, torch.float32),
+        nu=_lm_params(cfg, nu, device, torch.float32))
 
 
 def state_from_numpy(cfg: ModelConfig, cache: Mapping[str, Any], *,

@@ -1,9 +1,12 @@
-"""Shared transformer layers: RMSNorm, rotary embeddings, the SwiGLU MLP.
+"""Shared transformer layers: RMSNorm, rotary embeddings, the SwiGLU MLP,
+the training loss.
 
 Plain functions on tensors, with the JAX package's numerics: norms and rope
 in fp32 and cast back to the input dtype, projections in the compute dtype.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -45,3 +48,19 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     dtype (a no-op for weights already held in it)."""
     h = F.silu(x @ w_gate.to(compute_dtype)) * (x @ w_up.to(compute_dtype))
     return h @ w_down.to(compute_dtype)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Mean token NLL in fp32.  logits: (..., V); labels: int (...); an
+    optional mask weights each token and the mean is over its sum (at
+    least 1)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -95,3 +95,14 @@ def moe_apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
     w = (gate_vals.reshape(b, s * k) * keep).to(cd)
     out = (tok.reshape(b, s, k, d) * w.reshape(b, s, k, 1)).sum(dim=2)
     return out.to(x.dtype)
+
+
+def aux_load_balance_loss(logits: torch.Tensor, gate_idx: torch.Tensor,
+                          n_experts: int) -> torch.Tensor:
+    """Switch-style auxiliary loss: E · Σ_e f_e · P_e, from the router's
+    logits (B, S, E) and the chosen experts (B, S, K) (the first choice
+    counts)."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    p_mean = probs.mean(dim=(0, 1))
+    f = F.one_hot(gate_idx[..., 0].long(), n_experts).float().mean(dim=(0, 1))
+    return n_experts * torch.sum(f * p_mean)

@@ -6,7 +6,9 @@ forward (training shape and prefill), the decode step over a dense cache
 (the static server's; a rolling buffer for windowed configs), the slot
 decode steps the serving engine runs, on the dense slot cache and on the
 block-paged one, and the block-paged M-token step that speculative decoding
-verifies with.
+verifies with.  Training reads ``loss_fn`` (differentiable in every leaf,
+each layer recomputed in the backward under ``remat``) and ``decay_mask``
+(the leaves AdamW decays).
 
 Plain functions on explicit parameters, as in the JAX package: ``params`` is
 a dict holding ``embed`` (V, D), ``final_norm`` (D,), ``layers`` — one dict
@@ -37,11 +39,14 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ..tree import tree_leaves
 from . import attention as attn_lib
+from . import layers
 from . import moe as moe_lib
 from . import ssm as ssm_lib
-from .layers import apply_rope, rmsnorm, swiglu
+from .layers import apply_rope, rmsnorm, softmax_cross_entropy, swiglu
 
 Params = Dict[str, Any]
 
@@ -83,6 +88,12 @@ class ModelConfig:
     # paged serving decode: "ref" (gather + dense decode attention) or
     # "hopper" (the paged-attention kernel, pages read through the table)
     paged_attention_impl: str = "ref"
+    # training: recompute each layer's activations in the backward
+    # (torch.utils.checkpoint per layer; changes no number), and split the
+    # batch into this many sequential microbatches per step (gradient
+    # accumulation)
+    remat: bool = True
+    grad_accum: int = 1
 
     @property
     def hd(self) -> int:
@@ -287,10 +298,11 @@ def _merge_heads(out: torch.Tensor, p: Params, cfg: ModelConfig):
     return out @ p["wo"].to(cfg.compute_dtype)
 
 
-def _mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _mlp(p: Params, x: torch.Tensor, cfg: ModelConfig,
+         norm=None) -> torch.Tensor:
     cd = cfg.compute_dtype
     m = p["mlp"]
-    h_in = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    h_in = (norm or rmsnorm)(x, p["ln2"], cfg.norm_eps)
     if cfg.n_experts > 0:
         return x + moe_lib.moe_apply(m, h_in, cfg.moe_args(), cd)
     if cfg.gated_mlp:
@@ -299,8 +311,8 @@ def _mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x + h @ m["w_down"].to(cd)
 
 
-def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig):
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig, norm=None):
+    x = (norm or rmsnorm)(x, params["final_norm"], cfg.norm_eps)
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
@@ -308,7 +320,10 @@ def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig):
 
 
 def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig):
-    return params["embed"][tokens.long()].to(cfg.compute_dtype)
+    # F.embedding, not advanced indexing: its backward on a card sums each
+    # row's gradients in a fixed order (index_put_'s atomics do not), so a
+    # training step is bitwise repeatable
+    return F.embedding(tokens.long(), params["embed"]).to(cfg.compute_dtype)
 
 
 def _recurrent(cfg: ModelConfig, btype: str):
@@ -344,43 +359,79 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     _check_decoder_only(cfg)
     x = _embed(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=x.device)
+    remat = (cfg.remat and not emit_cache and torch.is_grad_enabled()
+             and any(t.requires_grad for t in tree_leaves(params)))
     caches = []
     for btype, p in zip(cfg.layer_types(), params["layers"]):
-        if btype in RECURRENT:
-            apply, _, args = _recurrent(cfg, btype)
-            h_in = rmsnorm(x, p["ln1"], cfg.norm_eps)
-            y = apply(p[btype], h_in, args, cfg.compute_dtype,
-                      return_state=emit_cache)
-            if emit_cache:
-                y, state = y
-                caches.append({btype: state})
-            x = _recurrent_out(p, x, y, btype, cfg)
+        if remat:
+            x = checkpoint(_layer, btype, p, x, positions, cfg, False,
+                           use_reentrant=False)[0]
             continue
-        h_in = rmsnorm(x, p["ln1"], cfg.norm_eps)
-        q, k, v = _project_qkv(p["attn"], h_in, cfg)
-        q = apply_rope(q, positions[None, None], cfg.rope_theta)
-        k = apply_rope(k, positions[None, None], cfg.rope_theta)
-        out = attn_lib.attend(q, k, v, impl=cfg.attention_impl, causal=True,
-                              window=cfg.attn_window,
-                              kv_chunk=cfg.attn_chunk)
-        x = x + _merge_heads(out, p["attn"], cfg)
-        x = _mlp(p, x, cfg)
-        if emit_cache:
-            w = cfg.attn_window
-            if w is not None and k.shape[2] > w:
-                # rolling buffer of the last w positions, position p in slot
-                # p % w: the layout a windowed decode step writes and reads
-                t = k.shape[2]
-                idx = torch.arange(w, device=k.device) + (t // w) * w
-                idx = torch.where(idx < t, idx, idx - w)
-                k, v = k[:, :, idx], v[:, :, idx]
-            caches.append({"k": k.to(cfg.compute_dtype),
-                           "v": v.to(cfg.compute_dtype)})
+        x, entry = _layer(btype, p, x, positions, cfg, emit_cache)
+        caches.append(entry)
     logits = _logits(params, x, cfg)
     if not emit_cache:
         return logits, None
     return logits, {"layers": caches,
                     "pos": torch.tensor(tokens.shape[1], dtype=torch.int32)}
+
+
+def _layer(btype: str, p: Params, x: torch.Tensor, positions: torch.Tensor,
+           cfg: ModelConfig, emit_cache: bool):
+    """One layer of the full-sequence forward: (x, its cache entry or
+    None)."""
+    if btype in RECURRENT:
+        apply, _, args = _recurrent(cfg, btype)
+        h_in = rmsnorm(x, p["ln1"], cfg.norm_eps)
+        y = apply(p[btype], h_in, args, cfg.compute_dtype,
+                  return_state=emit_cache)
+        entry = None
+        if emit_cache:
+            y, state = y
+            entry = {btype: state}
+        return _recurrent_out(p, x, y, btype, cfg), entry
+    h_in = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _project_qkv(p["attn"], h_in, cfg)
+    q = apply_rope(q, positions[None, None], cfg.rope_theta)
+    k = apply_rope(k, positions[None, None], cfg.rope_theta)
+    out = attn_lib.attend(q, k, v, impl=cfg.attention_impl, causal=True,
+                          window=cfg.attn_window, kv_chunk=cfg.attn_chunk)
+    x = x + _merge_heads(out, p["attn"], cfg)
+    x = _mlp(p, x, cfg)
+    if not emit_cache:
+        return x, None
+    w = cfg.attn_window
+    if w is not None and k.shape[2] > w:
+        # rolling buffer of the last w positions, position p in slot p % w:
+        # the layout a windowed decode step writes and reads
+        t = k.shape[2]
+        idx = torch.arange(w, device=k.device) + (t // w) * w
+        idx = torch.where(idx < t, idx, idx - w)
+        k, v = k[:, :, idx], v[:, :, idx]
+    return x, {"k": k.to(cfg.compute_dtype), "v": v.to(cfg.compute_dtype)}
+
+
+def loss_fn(params: Params, cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Mean next-token NLL of ``batch`` (``tokens``, ``labels``, optional
+    ``mask``), fp32.  Differentiable in every parameter leaf: the layers
+    cast each weight where they use it, so gradients reach the fp32
+    masters."""
+    logits, _ = forward(params, cfg, batch["tokens"])
+    return softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
+
+
+def decay_mask(cfg: ModelConfig) -> Params:
+    """Which parameter leaves AdamW decays, as the JAX package decays them:
+    a leaf of ndim >= 2 in ITS layout, where the layers of whole pattern
+    units are stacked on a leading axis (every leaf of theirs, norms and
+    biases included, is then >= 2-D) and the remainder layers, the
+    embeddings and the final norm are not."""
+    stacked = cfg.n_super * len(cfg.pattern_unit())
+    tree = map_params(lambda _, shape: len(shape) >= 2, param_shapes(cfg))
+    tree["layers"] = [map_params(lambda *_: True, layer) if i < stacked
+                      else layer for i, layer in enumerate(tree["layers"])]
+    return tree
 
 
 # ---------------------------------------------------------------------------
@@ -462,9 +513,20 @@ def _qkv_at(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _finish_block(p: Params, x: torch.Tensor, out: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
+                  cfg: ModelConfig, norm=None) -> torch.Tensor:
     x = x + _merge_heads(out, p["attn"], cfg)
-    return _mlp(p, x, cfg)
+    return _mlp(p, x, cfg, norm)
+
+
+def rmsnorm_multi(x: torch.Tensor, weight: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm of a window x (B, M, d), each offset normalized as the
+    single-token step's contiguous (B, 1, d) tensor.  On a card the order
+    in which a row's mean of squares is summed depends on how many rows
+    one reduction holds, so a (B·M)-row norm can differ in the last bit
+    from the step's B-row norm; per offset it cannot."""
+    return torch.cat([layers.rmsnorm(x[:, i:i + 1].contiguous(), weight, eps)
+                      for i in range(x.shape[1])], dim=1)
 
 
 def _dense_attn_block(p: Params, x: torch.Tensor, layer: Dict[str, Any],
@@ -647,13 +709,16 @@ def decode_step_slots_paged(params: Params, cfg: ModelConfig,
 def _multi_attn_block_paged(p: Params, x: torch.Tensor, layer: Dict[str, Any],
                             cfg: ModelConfig, pos: torch.Tensor,
                             block_tables: torch.Tensor, active: torch.Tensor,
-                            max_seq: int) -> torch.Tensor:
+                            max_seq: int, stepwise: bool) -> torch.Tensor:
     """Verification-window counterpart of :func:`_paged_attn_block`: x is
     (B, M, d), M consecutive tokens per slot at positions pos..pos+M-1,
     whose K/V goes into the slot's pages in one ``index_put_``; each query
     attends over cache slots <= its own position (the freshly written
-    window prefix included, as M sequential single-token steps see it)."""
-    h_in = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    window prefix included, as M sequential single-token steps see it).
+    ``stepwise``: the norms and the attention per window offset, in the
+    single-token step's shapes."""
+    norm = rmsnorm_multi if stepwise else rmsnorm
+    h_in = norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _project_qkv(p["attn"], h_in, cfg)             # (B,H,M,hd)
     m = x.shape[1]
     wpos = pos[:, None] + torch.arange(m, dtype=pos.dtype,
@@ -682,14 +747,16 @@ def _multi_attn_block_paged(p: Params, x: torch.Tensor, layer: Dict[str, Any],
                        v.transpose(1, 2).to(v_arena.dtype))
 
     out = attn_lib.paged_decode_attention_multi(
-        q, k_arena, v_arena, block_tables, pos, max_seq=max_seq)
-    return _finish_block(p, x, out, cfg)
+        q, k_arena, v_arena, block_tables, pos, max_seq=max_seq,
+        stepwise=stepwise)
+    return _finish_block(p, x, out, cfg, norm)
 
 
 def decode_multi_step_slots_paged(params: Params, cfg: ModelConfig,
                                   cache: Dict[str, Any], tokens: torch.Tensor,
                                   active: torch.Tensor, *, max_seq: int,
-                                  advance: bool = True):
+                                  advance: bool = True,
+                                  stepwise: bool = True):
     """M-token engine step over independent slots on the block-paged cache.
 
     tokens (B, M) int: M *consecutive* chain tokens per slot starting at
@@ -700,6 +767,21 @@ def decode_multi_step_slots_paged(params: Params, cfg: ModelConfig,
     every window offset in ONE step (speculative verification), and feeding
     a prompt chunk replays prefill M tokens at a time (the draft's
     catch-up).
+
+    ``stepwise`` (the verify) runs the norms and the attention, whose
+    rounding on a card depends on how many rows one call holds, once per
+    window offset in the single-token step's shapes.  The projections, the
+    MLP (a MoE's router included) and the head run over all B·M rows at
+    once, so an offset's numbers equal a plain step's only where the GEMM
+    library rounds row i of the (B·M)-row product as it rounds the B-row
+    product.  On the CPU it does, and speculation commits plain decoding's
+    tokens.  On an H100 ``chip_smoke.py`` phase 7 gates that for
+    qwen2-1.5B at 8 slots x 3 tokens (24 rows); at 32 slots x 5 tokens
+    (160 rows) cuBLAS rounds the MLP's down projection otherwise (from 89
+    rows) and the tokens drift.  False runs the norms and the attention
+    over the whole window at once: the draft's catch-up, whose numbers only
+    steer proposals; per offset, its prompt-long windows cut forced
+    speculation's tok/s ~6x on an H100 (``chip_smoke.py`` phase 10).
 
     ``advance`` True moves each active slot's position by M; False leaves
     ``pos`` alone so the caller commits only the accepted prefix.
@@ -724,8 +806,8 @@ def decode_multi_step_slots_paged(params: Params, cfg: ModelConfig,
     x = _embed(params, tokens, cfg)
     for p, layer in zip(params["layers"], cache["layers"]):
         x = _multi_attn_block_paged(p, x, layer, cfg, pos, block_tables,
-                                    active, max_seq)
-    logits = _logits(params, x, cfg)
+                                    active, max_seq, stepwise)
+    logits = _logits(params, x, cfg, rmsnorm_multi if stepwise else None)
     if advance:
         pos.copy_(torch.where(active, pos + tokens.shape[1], pos))
     return logits, cache

@@ -27,10 +27,14 @@ whose chain head token is ``last_tok``):
 
 Every committed token is a target greedy continuation of the committed
 chain plain decode walks, so outputs are those of plain decoding wherever
-the verify step's logits equal sequential steps' (bit for bit on the CPU;
-on a card the verify's gather path and the plain step's kernel round
-differently).  Expected committed tokens per round is sum_{i=1..k} alpha^i
-+ 1 for per-token acceptance rate alpha
+the verify step's logits equal sequential steps' (bit for bit under the
+``ref`` impl on the CPU, and on an H100 for the window ``chip_smoke.py``
+phase 7 gates, 8 slots x 3 tokens: the verify runs its norms and
+attention per window offset in the plain step's shapes, its products over
+the whole window, which cuBLAS rounds otherwise at wider windows such as
+32 x 5; with the ``hopper`` impl the plain step's kernel and the verify's
+gather path round differently).  Expected committed tokens per round is
+sum_{i=1..k} alpha^i + 1 for per-token acceptance rate alpha
 (`core.cost_model.expected_tokens_per_round`).
 
 Safety gate: a slot only enters a round while ``rem >= k`` (rem = steps
@@ -172,7 +176,11 @@ class DraftEngine:
         slot — initial enrollment (pos 0 -> plen and on) and catch-up after
         plain bursts advanced the target without the draft — as one
         multi-token step over that slot alone (a view of its position and
-        block-table row; the arenas are shared)."""
+        block-table row; the arenas are shared), its window contracted at
+        once (``stepwise=False``: the draft's numbers only steer its
+        proposals, and per offset a prompt-long window is a loop of
+        per-offset calls that cut forced speculation from 73.3 to 11.7
+        tok/s on an H100 in ``chip_smoke.py`` phase 10)."""
         start = int(self.pos[slot])
         if int(target_pos) <= start:
             return
@@ -191,7 +199,7 @@ class DraftEngine:
             T.decode_multi_step_slots_paged(
                 self.params, self.cfg, view, chain[None],
                 torch.ones((1,), dtype=torch.bool, device=self.device),
-                max_seq=self.max_seq, advance=True)
+                max_seq=self.max_seq, advance=True, stepwise=False)
         self.pos[slot] = int(target_pos)
 
     def proposals(self, k: int) -> torch.Tensor:

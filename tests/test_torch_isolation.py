@@ -54,7 +54,10 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                  "configs.phi35_moe", "configs.mixtral_8x7b",
                  "configs.falcon_mamba_7b", "configs.recurrentgemma_2b",
                  "configs.deepseek_coder_33b", "configs.granite_34b",
-                 "configs.minicpm_2b"):
+                 "configs.minicpm_2b", "optim.adamw", "optim.schedules",
+                 "optim.compression", "data.pipeline", "checkpoint.manager",
+                 "runtime.fault_tolerance", "launch.steps", "launch.train",
+                 "tree"):
         assert f"repro_torch.{name}" in modules
     benches = sorted(p.stem for p in (REPO / "benchmarks").glob(
         "bench_torch_*.py"))

@@ -259,6 +259,39 @@ def test_multi_step_rejects_non_attention():
     assert str(got.value) == str(want.value)
 
 
+@pytest.mark.parametrize("b, m", [(8, 2), (8, 3), (32, 3)])
+@torch.no_grad()
+def test_multi_attention_offsets_equal_single_steps(b, m):
+    """Each window offset of the verify's attention is the single-token
+    attention at ``pos + i`` bit for bit: the offsets are contracted in the
+    plain step's shapes, so the card rounds them as it rounds a step.  The
+    verify's norms likewise (``rmsnorm_multi``)."""
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models.layers import rmsnorm
+
+    rng = np.random.default_rng(b * 10 + m)
+    hq, hk, t, d = 12, 2, 40, 16
+    q = torch.from_numpy(rng.standard_normal((b, hq, m, d), np.float32))
+    k = torch.from_numpy(rng.standard_normal((b, hk, t, d), np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, hk, t, d), np.float32))
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    pos = torch.from_numpy(rng.integers(0, t - m + 1, b).astype(np.int32))
+    out = attn_lib.decode_attention_multi(q, k, v, pos=pos)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    for i in range(m):
+        one = attn_lib.decode_attention(q[:, :, i:i + 1], k, v, pos=pos + i)
+        assert torch.equal(out[:, :, i:i + 1], one), i
+    # the catch-up's batched form: the same numbers on the CPU
+    assert torch.equal(attn_lib.decode_attention_multi(q, k, v, pos=pos,
+                                                       stepwise=False), out)
+    x = torch.from_numpy(rng.standard_normal((b, m, 48), np.float32))
+    w = torch.from_numpy(rng.standard_normal(48, np.float32))
+    normed = PT.rmsnorm_multi(x.bfloat16(), w)
+    for i in range(m):
+        assert torch.equal(normed[:, i:i + 1],
+                           rmsnorm(x[:, i:i + 1].bfloat16(), w)), i
+
+
 # ---------------------------------------------------------------------
 # serving: speculative == plain, colocated
 # ---------------------------------------------------------------------
