@@ -8,12 +8,10 @@ Each ported architecture contributes a module of this package defining:
 Shapes are the assignment's four workloads.  ``supports()`` encodes the
 skip rules (long_500k needs sub-quadratic attention).
 
-Every decoder-only architecture and ``alexnet`` are ported.  ``get`` raises
-``NotImplementedError`` for the two that need cross-attention,
-``seamless_m4t_medium`` (encoder-decoder) and ``llama32_vision_90b``
-(vision front end) (ROADMAP §1 item 7), and so does ``all_archs`` until
-they are.  ``input_specs`` and ``runnable_cells`` wait for the dry run
-(item 9).
+Every architecture is ported: the decoder-only ones, the encoder-decoder
+``seamless_m4t_medium``, the vision decoder ``llama32_vision_90b`` and
+``alexnet``.  ``input_specs`` and ``runnable_cells`` wait for the dry run
+(ROADMAP §1 item 9).
 """
 from __future__ import annotations
 
@@ -65,17 +63,7 @@ class ArchSpec:
 
 def get(name: str) -> ArchSpec:
     name = name.replace("-", "_").replace(".", "")
-    module = f"{__package__}.{name}"
-    try:
-        mod = importlib.import_module(module)
-    except ModuleNotFoundError as err:
-        if err.name != module or name not in ARCH_NAMES:
-            raise
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet: cross-attention and the "
-            "encoder-decoder wait for ROADMAP §1 item 7 (the other "
-            "architectures); the port has every decoder-only config and "
-            "alexnet") from None
+    mod = importlib.import_module(f"{__package__}.{name}")
     return ArchSpec(
         name=name,
         config=getattr(mod, "CONFIG", None),

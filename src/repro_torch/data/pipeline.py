@@ -9,8 +9,10 @@ Two sources:
 
 ``state()`` returns the cursor a checkpoint stores; ``restore(cursor)``
 resumes the stream exactly.  Each host draws only its shard of the global
-batch (``host_index``/``host_count``).  The audio and vision front-end
-stubs wait for the encoder-decoder and cross-attention (ROADMAP §1 item 7).
+batch (``host_index``/``host_count``).  For an audio or vision front end,
+SyntheticLM's batches also carry the stub's precomputed embeddings
+(``enc_inputs`` or ``img_embeds``), drawn from the same generator after the
+tokens, as the JAX package draws them.
 """
 from __future__ import annotations
 
@@ -29,7 +31,10 @@ class DataConfig:
     seed: int = 0
     host_index: int = 0
     host_count: int = 1
-    frontend: str = "none"           # none (audio | vision: not ported)
+    frontend: str = "none"           # none | audio | vision
+    d_model: int = 0                 # for the front-end embedding stubs
+    img_seq: int = 0
+    enc_len: int = 0
 
     @property
     def host_batch(self) -> int:
@@ -47,18 +52,26 @@ def _device(device) -> torch.device:
     return device
 
 
-def _check_frontend(cfg: DataConfig) -> None:
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"frontend {cfg.frontend!r}: the audio and vision embedding "
-            "stubs are not ported yet; ROADMAP §1 item 7 (the other "
-            "architectures) ports them")
-
-
 def _batch(toks: np.ndarray, device) -> Dict[str, torch.Tensor]:
     toks = torch.from_numpy(toks)
     return {"tokens": toks[:, :-1].contiguous().to(device),
             "labels": toks[:, 1:].contiguous().to(device)}
+
+
+def _frontend_stub(cfg: DataConfig, rng,
+                   device) -> Dict[str, torch.Tensor]:
+    """The front end's precomputed embeddings (the modality stub): frame
+    embeddings (B, enc_len or seq_len, d_model) for audio, patch embeddings
+    (B, img_seq, d_model) for vision, fp32 standard normals from ``rng``."""
+    out = {}
+    if cfg.frontend == "audio" and cfg.d_model:
+        enc_len = cfg.enc_len or cfg.seq_len
+        out["enc_inputs"] = rng.standard_normal(
+            (cfg.host_batch, enc_len, cfg.d_model), dtype=np.float32)
+    if cfg.frontend == "vision" and cfg.d_model:
+        out["img_embeds"] = rng.standard_normal(
+            (cfg.host_batch, cfg.img_seq, cfg.d_model), dtype=np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
 
 
 class SyntheticLM:
@@ -67,7 +80,6 @@ class SyntheticLM:
     below log(V), ~log(8)."""
 
     def __init__(self, cfg: DataConfig, *, device="cuda"):
-        _check_frontend(cfg)
         self.cfg = cfg
         self.device = _device(device)
         rng = np.random.default_rng(cfg.seed)
@@ -94,14 +106,15 @@ class SyntheticLM:
         for t in range(s):
             toks[:, t + 1] = self._succ[toks[:, t], choices[:, t]]
         self._step += 1
-        return _batch(toks, self.device)
+        batch = _batch(toks, self.device)
+        batch.update(_frontend_stub(cfg, rng, self.device))
+        return batch
 
 
 class TextFileLM:
     """Byte-level LM over a local file, sequential chunks, resumable."""
 
     def __init__(self, cfg: DataConfig, path: str, *, device="cuda"):
-        _check_frontend(cfg)
         self.cfg = cfg
         self.device = _device(device)
         with open(path, "rb") as f:

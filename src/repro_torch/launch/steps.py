@@ -20,7 +20,8 @@ Batch = Dict[str, torch.Tensor]
 def loss_and_grads(params: Tree, cfg: T.ModelConfig,
                    batch: Batch) -> Tuple[torch.Tensor, Tree]:
     """(loss, gradient tree beside ``params``): ``value_and_grad`` of
-    ``loss_fn``.  The parameters are left as they are; each gradient comes
+    ``loss_fn`` on the whole batch (``enc_inputs`` or ``img_embeds``
+    included, for a cross-attention config).  The parameters are left as they are; each gradient comes
     in its leaf's dtype (fp32 for the fp32 masters), zeros for a leaf the
     loss does not reach."""
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
@@ -37,8 +38,9 @@ def loss_and_grads(params: Tree, cfg: T.ModelConfig,
 
 def _accum_grads(params: Tree, cfg: T.ModelConfig, batch: Batch,
                  n: int) -> Tuple[torch.Tensor, Tree]:
-    """Gradient accumulation over ``n`` sequential microbatches (the batch
-    split along its first axis): sums loss / n and grads / n in fp32."""
+    """Gradient accumulation over ``n`` sequential microbatches (every
+    tensor of the batch split along its first axis, front-end embeddings
+    too): sums loss / n and grads / n in fp32."""
     loss_acc = torch.zeros((), dtype=torch.float32,
                            device=batch["tokens"].device)
     grads_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,

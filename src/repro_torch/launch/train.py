@@ -15,6 +15,9 @@ unless ``--device cpu`` is given, and raises without one).  Wired in:
     ``--ckpt-interval``), the data pipeline's cursor in the checkpoint;
   * preemption handling (SIGTERM -> checkpoint -> clean exit) and
     straggler detection (EWMA step timer, synchronized on a card);
+  * for an encoder-decoder or vision arch, the data pipeline's front-end
+    stub embeddings in every batch (frames of ``--seq`` for the encoder,
+    the config's ``img_seq`` patches), which the train step passes on;
   * gradient accumulation over ``max(--grad-accum, the config's
     grad_accum)`` microbatches, as the JAX package's step builder takes
     it, and int8 gradient compression with error feedback
@@ -93,7 +96,9 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     # ---- data -------------------------------------------------------
     dcfg = DataConfig(global_batch=args.batch, seq_len=args.seq,
-                      vocab=cfg.vocab, frontend=cfg.frontend)
+                      vocab=cfg.vocab, frontend=cfg.frontend,
+                      d_model=cfg.d_model, img_seq=cfg.img_seq,
+                      enc_len=args.seq)
     pipe = make_pipeline(dcfg, corpus=args.corpus or None, device=device)
 
     # ---- state ------------------------------------------------------

@@ -14,7 +14,7 @@ Full-sequence attention (prefill), selected by ``ModelConfig.attention_impl``:
 Single-token decode attention against a dense cache (``decode_attention``)
 or a block-paged arena (``paged_decode_attention``, impl ``ref`` or
 ``hopper``, selected by ``ModelConfig.paged_attention_impl``), and its
-M-token form for speculative verification (``decode_attention_multi``,
+M-token form for the draft's catch-up (``decode_attention_multi``,
 ``paged_decode_attention_multi``: the gather path only, as in the JAX
 package, which has no kernel for it either).
 
@@ -239,33 +239,20 @@ def paged_decode_attention(q, k_arena, v_arena, block_tables, pos, *,
     return decode_attention(q, k, v, pos=pos, window=None)
 
 
-def decode_attention_multi(q, k_cache, v_cache, *, pos: torch.Tensor,
-                           stepwise: bool = True) -> torch.Tensor:
-    """M-token verification attention against a cache.
+def decode_attention_multi(q, k_cache, v_cache, *,
+                           pos: torch.Tensor) -> torch.Tensor:
+    """M-token attention against a cache (the draft's catch-up).
 
     q: (B, HQ, M, D); caches: (B, HK, T, D).  ``pos`` is a (B,) tensor of
     per-slot absolute positions of the FIRST query token: query m of slot b
     sits at position pos[b] + m and attends over cache slots <= pos[b] + m
     (the cache must already hold the window's K/V at positions
-    pos..pos+M-1).  This is :func:`decode_attention` with a query axis:
-    speculative verification feeds the committed chain head plus k drafted
-    tokens in one step instead of k+1 sequential single-token steps.
-    Windowed layers are unsupported: the rolling buffer's write-back
-    overlaps itself inside one multi-token window.
-
-    ``stepwise`` contracts each window offset in the plain step's own
-    shapes: offset i is :func:`decode_attention` on ``q[:, :, i:i+1]`` at
-    ``pos + i``, so its (B, HK, G, D) @ (B, HK, T, D) products are the ones
-    a single-token step runs, and on the CPU and the card alike every
-    offset's attention is that step's bit for bit.  False batches the
-    offsets, (B, M, HK) products of (G, D) @ (D, T), in one call: the same
-    numbers on the CPU, but the card's GEMM library rounds a batch count
-    that large otherwise.
+    pos..pos+M-1).  This is :func:`decode_attention` with a query axis,
+    the offsets on the batch side of the products: (B, M, HK) products of
+    (G, D) @ (D, T) in one call.  Windowed layers are unsupported: the
+    rolling buffer's write-back overlaps itself inside one multi-token
+    window.
     """
-    if stepwise:
-        return torch.cat([decode_attention(q[:, :, i:i + 1].contiguous(),
-                                           k_cache, v_cache, pos=pos + i)
-                          for i in range(q.shape[2])], dim=2)
     b, hq, m, d = q.shape
     hk, t = k_cache.shape[1], k_cache.shape[2]
     qg = _gqa_fold(q, hk).permute(0, 3, 1, 2, 4)            # (B,M,HK,G,D)
@@ -285,9 +272,8 @@ def decode_attention_multi(q, k_cache, v_cache, *, pos: torch.Tensor,
 
 
 def paged_decode_attention_multi(q, k_arena, v_arena, block_tables, pos, *,
-                                 max_seq: int,
-                                 stepwise: bool = True) -> torch.Tensor:
-    """M-token verification attention against a block-paged cache.
+                                 max_seq: int) -> torch.Tensor:
+    """M-token attention against a block-paged cache (the catch-up).
 
     Shapes as :func:`paged_decode_attention` with q: (B, HQ, M, D).  Only
     the gather path exists, on the CPU and on a card alike: the gathered
@@ -298,4 +284,4 @@ def paged_decode_attention_multi(q, k_arena, v_arena, block_tables, pos, *,
     from ..kernels.ref import paged_gather
     k = paged_gather(k_arena, block_tables, max_seq)
     v = paged_gather(v_arena, block_tables, max_seq)
-    return decode_attention_multi(q, k, v, pos=pos, stepwise=stepwise)
+    return decode_attention_multi(q, k, v, pos=pos)

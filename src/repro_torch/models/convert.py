@@ -13,10 +13,12 @@ layers.  Conversion interleaves them into the port's one-dict-per-layer
 list — layer i is ``blocks[i % U][i // U]`` for the n_super·U layers of
 whole pattern units and ``rem[i - n_super·U]`` after them — and checks
 every shape against ``transformer.param_shapes``.  An MoE layer's expert
-stacks keep their leading expert axis.  :func:`state_from_numpy` unstacks a
-decode cache of the JAX package the same way, and
-:func:`opt_state_from_numpy` its AdamW moments (its gradients, a tree of
-the parameters' layout, go through :func:`params_from_numpy`).
+stacks keep their leading expert axis; an encoder-decoder's ``encoder``
+stack is unstacked the same way (its config: ``encoder_config``).
+:func:`state_from_numpy` unstacks a decode cache of the JAX package the
+same way, and :func:`opt_state_from_numpy` its AdamW moments (its
+gradients, a tree of the parameters' layout, go through
+:func:`params_from_numpy`).
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import torch
 from ..core.engines import check_layer_params
 from ..core.layer_model import NetworkSpec
 from ..optim.adamw import AdamWState
-from .transformer import ModelConfig, map_params, param_shapes
+from .transformer import ModelConfig, encoder_config, map_params, param_shapes
 
 
 def params_from_numpy(net: Union[NetworkSpec, ModelConfig], arrays, *,
@@ -70,9 +72,14 @@ def _unstack(cfg: ModelConfig, blocks, rem) -> List[Any]:
 
 def _lm_params(cfg: ModelConfig, tree: Mapping[str, Any], device,
                dtype=None) -> Dict[str, Any]:
-    flat = {k: _plain(v) for k, v in tree.items() if k != "decoder"}
+    flat = {k: _plain(v) for k, v in tree.items()
+            if k not in ("decoder", "encoder")}
     flat["layers"] = _unstack(cfg, tree["decoder"]["blocks"],
                               tree["decoder"]["rem"])
+    if "encoder" in tree:
+        flat["encoder"] = _unstack(encoder_config(cfg),
+                                   tree["encoder"]["blocks"],
+                                   tree["encoder"]["rem"])
     shapes = param_shapes(cfg)
     _check_tree(flat, shapes, "params")
 
@@ -102,8 +109,9 @@ def state_from_numpy(cfg: ModelConfig, cache: Mapping[str, Any], *,
     """A decode cache of the JAX package (``init_cache``, ``init_slot_cache``
     or ``init_slot_cache_paged`` layout, numpy leaves) in the port's layout:
     one entry per layer, each leaf in its own dtype (bfloat16 conv states
-    included), ``pos`` and any ``block_tables``.  The cross-attention
-    features are not carried: the port has no cross-attention."""
+    and cross rows included), ``pos``, any ``block_tables``, and ``cross``
+    where the cache has rows (None is left out).  A gated cross-attention
+    layer's entry, a scalar placeholder there, is ``{}`` here."""
     def tensor(_, a):
         if str(np.asarray(a).dtype) == "bfloat16":
             return torch.from_numpy(np.asarray(a, np.float32)).to(
@@ -111,9 +119,12 @@ def state_from_numpy(cfg: ModelConfig, cache: Mapping[str, Any], *,
         return torch.from_numpy(np.array(a)).to(device)
 
     blocks, rem = cache["layers"]
-    out = {"layers": _unstack(cfg, blocks, rem), "pos": cache["pos"]}
-    if "block_tables" in cache:
-        out["block_tables"] = cache["block_tables"]
+    layers = [{} if t == "xattn" else entry for t, entry in
+              zip(cfg.layer_types(), _unstack(cfg, blocks, rem))]
+    out = {"layers": layers, "pos": cache["pos"]}
+    for key in ("block_tables", "cross"):
+        if cache.get(key) is not None:
+            out[key] = cache[key]
     return map_params(tensor, out)
 
 

@@ -1,5 +1,5 @@
-"""Shared transformer layers: RMSNorm, rotary embeddings, the SwiGLU MLP,
-the training loss.
+"""Shared transformer layers: RMSNorm and LayerNorm, rotary embeddings, the
+SwiGLU and GELU MLPs, the training loss.
 
 Plain functions on tensors, with the JAX package's numerics: norms and rope
 in fp32 and cast back to the input dtype, projections in the compute dtype.
@@ -20,6 +20,18 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + weight.float())).to(dtype)
+
+
+def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-6) -> torch.Tensor:
+    """(x - mean) * rsqrt(var + eps) * weight + bias over the last axis, in
+    fp32 (the biased variance, as ``jnp.var``)."""
+    dtype = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * weight.float() + bias.float()).to(dtype)
 
 
 def rope_freqs(head_dim: int, theta: float = 1e4,
@@ -48,6 +60,20 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     dtype (a no-op for weights already held in it)."""
     h = F.silu(x @ w_gate.to(compute_dtype)) * (x @ w_up.to(compute_dtype))
     return h @ w_down.to(compute_dtype)
+
+
+def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: Optional[torch.Tensor],
+             w_out: torch.Tensor, b_out: Optional[torch.Tensor],
+             compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """gelu(x @ w_in + b_in) @ w_out + b_out, the biases optional, weights
+    in the compute dtype; GELU's tanh form, as ``jax.nn.gelu``'s default."""
+    h = x @ w_in.to(compute_dtype)
+    if b_in is not None:
+        h = h + b_in.to(compute_dtype)
+    out = F.gelu(h, approximate="tanh") @ w_out.to(compute_dtype)
+    if b_out is not None:
+        out = out + b_out.to(compute_dtype)
+    return out
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -1,36 +1,43 @@
-"""The config-driven transformer family, decoder-only: dense llama-style
-decoders (qwen2, deepseek-coder, granite, minicpm), the MoE decoders
-(mixtral, phi3.5-moe; ``models/moe.py``), the Mamba-1 decoder (falcon-mamba;
-``models/ssm.py``) and the RG-LRU hybrid (recurrentgemma).  Full-sequence
-forward (training shape and prefill), the decode step over a dense cache
-(the static server's; a rolling buffer for windowed configs), the slot
-decode steps the serving engine runs, on the dense slot cache and on the
-block-paged one, and the block-paged M-token step that speculative decoding
-verifies with.  Training reads ``loss_fn`` (differentiable in every leaf,
-each layer recomputed in the backward under ``remat``) and ``decay_mask``
-(the leaves AdamW decays).
+"""The config-driven transformer family: dense llama-style decoders (qwen2,
+deepseek-coder, granite, minicpm), the MoE decoders (mixtral, phi3.5-moe;
+``models/moe.py``), the Mamba-1 decoder (falcon-mamba; ``models/ssm.py``),
+the RG-LRU hybrid (recurrentgemma), the encoder-decoder (seamless-m4t: an
+encoder over precomputed frame embeddings, and a cross-attention branch in
+every decoder layer) and the vision decoder (llama-3.2-vision: a gated
+cross-attention layer over precomputed patch embeddings every Nth layer).
+Full-sequence forward (training shape and prefill), the decode step over a
+dense cache (the static server's; a rolling buffer for windowed configs),
+the slot decode steps the serving engine runs, on the dense slot cache and
+on the block-paged one, and the block-paged M-token step that speculative
+decoding verifies with.  Training reads ``loss_fn`` (differentiable in
+every leaf, each layer recomputed in the backward under ``remat``) and
+``decay_mask`` (the leaves AdamW decays).
 
 Plain functions on explicit parameters, as in the JAX package: ``params`` is
 a dict holding ``embed`` (V, D), ``final_norm`` (D,), ``layers`` — one dict
 per layer, by the layer's type: ``attn`` layers hold ``ln1``, ``attn``
 (``wq wk wv wo`` [+ ``bq bk bv``]), ``ln2`` and ``mlp`` (``w_gate w_up
-w_down``, or the MoE's ``router`` and expert stacks); ``rec`` layers hold
-``ln1``, ``rec`` (the RG-LRU branch), ``ln2`` and ``mlp``; ``mamba`` layers
-hold ``ln1`` and ``mamba`` — and ``lm_head`` when embeddings are untied.
-The JAX package stacks layers for ``lax.scan``;
+w_down``, or the MoE's ``router`` and expert stacks), and in an
+encoder-decoder's decoder ``lnx`` and ``xattn`` (``wq wk wv wo``) as well;
+``xattn`` layers hold ``ln1``, ``xattn``, ``ln2``, ``mlp`` and the scalar
+gates ``gate_attn`` and ``gate_mlp``; ``rec`` layers hold ``ln1``, ``rec``
+(the RG-LRU branch), ``ln2`` and ``mlp``; ``mamba`` layers hold ``ln1`` and
+``mamba`` — ``lm_head`` when embeddings are untied, and for an
+encoder-decoder ``encoder`` (a list of ``attn`` layers) and
+``enc_final_norm``.  The JAX package stacks layers for ``lax.scan``;
 ``models.convert.params_from_numpy`` unstacks its tree into this layout.
 
 A cache holds one entry per layer: ``{"k", "v"}`` rows (dense) or arenas
 (paged) for an attention layer, ``{"rec": {"h", "conv"}}`` or ``{"mamba":
-{"h", "conv"}}`` for a recurrent one, slot-major in either layout.  Unlike
-the JAX package's pure functions, the decode steps update the cache in place
-(the KV rows or arenas, the recurrent states, the positions): it is the
-serving engine's state, copying a 28-layer cache every token would double
-the step's traffic, and a CUDA graph replaying the step reads and writes the
-same buffers.
-
-Cross-attention, the encoder-decoder and the vision front end are not
-ported yet: configs that need them are refused (ROADMAP §1 item 7).
+{"h", "conv"}}`` for a recurrent one, ``{}`` for a cross-attention layer,
+slot-major in either layout; a config with cross-attention adds ``cross``,
+the features its cross-attention reads, (B, T, D) in the compute dtype (the
+encoder's output, or the image embeddings).  Unlike the JAX package's pure
+functions, the decode steps update the cache in place (the KV rows or
+arenas, the recurrent states, the positions): it is the serving engine's
+state, copying a 28-layer cache every token would double the step's
+traffic, and a CUDA graph replaying the step reads and writes the same
+buffers.
 """
 from __future__ import annotations
 
@@ -43,10 +50,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..tree import tree_leaves
 from . import attention as attn_lib
-from . import layers
 from . import moe as moe_lib
 from . import ssm as ssm_lib
-from .layers import apply_rope, rmsnorm, softmax_cross_entropy, swiglu
+from .layers import (apply_rope, gelu_mlp, rmsnorm, softmax_cross_entropy,
+                     swiglu)
 
 Params = Dict[str, Any]
 
@@ -75,9 +82,9 @@ class ModelConfig:
     ssm_conv: int = 4
     ssm_expand: int = 2
     scan_chunk: int = 256
-    # encoder-decoder and front end (refused: not ported yet)
+    # encoder-decoder
     encoder_decoder: bool = False
-    frontend: str = "none"                  # none | audio | vision
+    enc_layers: int = 0
     rope_theta: float = 1e4
     norm_eps: float = 1e-6
     tie_embeddings: bool = True
@@ -93,6 +100,8 @@ class ModelConfig:
     # batch into this many sequential microbatches per step (gradient
     # accumulation)
     remat: bool = True
+    frontend: str = "none"                  # none | audio | vision
+    img_seq: int = 6404                     # vision stub: 4 tiles x 1601
     grad_accum: int = 1
 
     @property
@@ -128,24 +137,29 @@ class ModelConfig:
 RECURRENT = ("rec", "mamba")
 
 
-def _check_decoder_only(cfg: ModelConfig) -> None:
-    """Refuse what the port does not run yet: cross-attention layers, the
-    encoder-decoder and the vision front end."""
-    if (cfg.encoder_decoder or cfg.frontend != "none"
-            or "xattn" in cfg.layer_types()):
-        raise NotImplementedError(
-            f"{cfg.name}: cross-attention, the encoder-decoder and the "
-            f"vision front end are not ported yet (ROADMAP §1 item 7); the "
-            f"port runs decoder-only configs of layer types attn, rec and "
-            f"mamba")
+def encoder_config(cfg: ModelConfig) -> ModelConfig:
+    """The encoder stack's config: ``enc_layers`` (default ``n_layers``)
+    self-attention layers, no cross-attention."""
+    return dataclasses.replace(
+        cfg, n_layers=cfg.enc_layers or cfg.n_layers, block_pattern=("attn",),
+        cross_attn_every=0, encoder_decoder=False)
 
 
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
-def _block_shapes(cfg: ModelConfig, btype: str) -> Params:
-    d, h, hk, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                       cfg.d_ff)
+def _attn_shapes(cfg: ModelConfig, cross: bool = False) -> Params:
+    d, h, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    attn = {"wq": (d, h * hd), "wk": (d, hk * hd), "wv": (d, hk * hd),
+            "wo": (h * hd, d)}
+    if cfg.qkv_bias and not cross:
+        attn.update(bq=(h * hd,), bk=(hk * hd,), bv=(hk * hd,))
+    return attn
+
+
+def _block_shapes(cfg: ModelConfig, btype: str,
+                  with_cross: bool = False) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
     if cfg.n_experts > 0:
         mlp = moe_lib.moe_param_shapes(cfg.moe_args())
     else:
@@ -153,11 +167,14 @@ def _block_shapes(cfg: ModelConfig, btype: str) -> Params:
         if cfg.gated_mlp:
             mlp["w_gate"] = (d, f)
     if btype == "attn":
-        attn = {"wq": (d, h * hd), "wk": (d, hk * hd), "wv": (d, hk * hd),
-                "wo": (h * hd, d)}
-        if cfg.qkv_bias:
-            attn.update(bq=(h * hd,), bk=(hk * hd,), bv=(hk * hd,))
-        return {"ln1": (d,), "attn": attn, "ln2": (d,), "mlp": mlp}
+        block = {"ln1": (d,), "attn": _attn_shapes(cfg), "ln2": (d,),
+                 "mlp": mlp}
+        if with_cross:
+            block.update(lnx=(d,), xattn=_attn_shapes(cfg, cross=True))
+        return block
+    if btype == "xattn":
+        return {"ln1": (d,), "xattn": _attn_shapes(cfg, cross=True),
+                "ln2": (d,), "mlp": mlp, "gate_attn": (), "gate_mlp": ()}
     if btype == "rec":
         return {"ln1": (d,),
                 "rec": ssm_lib.rglru_param_shapes(cfg.rglru_args()),
@@ -170,13 +187,17 @@ def _block_shapes(cfg: ModelConfig, btype: str) -> Params:
 
 def param_shapes(cfg: ModelConfig) -> Params:
     """The parameter tree's shapes, in the layout this module reads."""
-    _check_decoder_only(cfg)
     d = cfg.d_model
     shapes: Params = {"embed": (cfg.vocab, d), "final_norm": (d,),
-                      "layers": [_block_shapes(cfg, t)
+                      "layers": [_block_shapes(cfg, t, cfg.encoder_decoder)
                                  for t in cfg.layer_types()]}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, cfg.vocab)
+    if cfg.encoder_decoder:
+        enc = encoder_config(cfg)
+        shapes["encoder"] = [_block_shapes(enc, t)
+                             for t in enc.layer_types()]
+        shapes["enc_final_norm"] = (d,)
     return shapes
 
 
@@ -194,7 +215,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
                 device="cuda") -> Params:
     """Random parameters from ``seed``, drawn on ``device``: He-normal
     matrices (fan-in the second-to-last axis, so an expert stack's per
-    expert), N(0, 0.02) embeddings, zero norms and biases, and the SSM
+    expert), N(0, 0.02) embeddings, zero norms, biases and cross-attention
+    gates (so a gated layer starts as the identity), and the SSM
     blocks' own draws (``ssm.init_leaf``) — the JAX package's init; the two
     frameworks' generators give other numbers."""
     device = torch.device(device)
@@ -207,7 +229,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
         special = ssm_lib.init_leaf(name, shape, gen, device)
         if special is not None:
             return special.to(cfg.param_dtype)
-        if len(shape) == 1:
+        if len(shape) <= 1:
             return torch.zeros(shape, dtype=cfg.param_dtype, device=device)
         std = 0.02 if name == "embed" else (2.0 / shape[-2]) ** 0.5
         return (torch.randn(shape, generator=gen, device=device) * std).to(
@@ -217,16 +239,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
 
 
 # leaves the layers read in fp32 whatever the compute dtype: the norms, the
-# MoE router, the SSM decay parameters
-_FP32_LEAVES = ("final_norm", "router", "A_log", "lambda")
+# cross-attention gates, the MoE router, the SSM decay parameters
+_FP32_LEAVES = ("final_norm", "enc_final_norm", "gate_attn", "gate_mlp",
+                "router", "A_log", "lambda")
 
 
 def compute_params(params: Params, cfg: ModelConfig) -> Params:
     """The parameters with every matrix and bias cast to the compute dtype
-    once, the leaves the layers read in fp32 (norms, the MoE router, the
-    SSM decays) left as they are.  The layers cast each weight to the
-    compute dtype where they use it, so this changes no number: it only
-    keeps a decode step from re-casting billions of weights every token."""
+    once, the leaves the layers read in fp32 (norms, the gates, the MoE
+    router, the SSM decays) left as they are.  The layers cast each weight
+    to the compute dtype where they use it, so this changes no number: it
+    only keeps a decode step from re-casting billions of weights every
+    token."""
     def cast(name, t):
         if name.startswith("ln") or name in _FP32_LEAVES:
             return t
@@ -236,8 +260,9 @@ def compute_params(params: Params, cfg: ModelConfig) -> Params:
 
 
 def count_params(cfg: ModelConfig) -> int:
-    """Parameter count, the JAX package's formula."""
-    _check_decoder_only(cfg)
+    """Parameter count, the JAX package's formula (which counts a
+    cross-attention block as a self-attention one and leaves out the norms
+    and the gates)."""
     d, h, hk, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                        cfg.d_ff)
     attn = d * h * hd + 2 * d * hk * hd + h * hd * d
@@ -255,40 +280,51 @@ def count_params(cfg: ModelConfig) -> int:
     ra = cfg.rglru_args()
     rec = (d * 2 * ra.d_inner + ra.d_inner * d + 2 * ra.d_inner * ra.d_inner
            + 2 * ra.d_inner + ra.d_inner * ra.d_conv)
-    per_type = {"attn": attn + mlp, "rec": rec + mlp, "mamba": mamba}
+    per_type = {"attn": attn + mlp, "xattn": attn + mlp, "rec": rec + mlp,
+                "mamba": mamba}
     total = sum(per_type[t] for t in cfg.layer_types())
     total += cfg.vocab * d
     if not cfg.tie_embeddings:
         total += d * cfg.vocab
+    if cfg.encoder_decoder:
+        total += (cfg.enc_layers or cfg.n_layers) * (attn + mlp)
+        total += cfg.n_layers * attn          # decoder cross-attention
     return total
 
 
 def count_active_params(cfg: ModelConfig) -> int:
     """MoE: only top_k experts per token count toward 6·N·D (the JAX
-    package's formula, which discounts the experts of attention layers)."""
+    package's formula, which discounts the experts of attention and
+    cross-attention layers)."""
     if cfg.n_experts == 0:
         return count_params(cfg)
     mats = 3 if cfg.gated_mlp else 2
     inactive = (cfg.n_experts - cfg.moe_top_k) * mats * cfg.d_model * cfg.d_ff
-    return count_params(cfg) - cfg.layer_types().count("attn") * inactive
+    n_attn = sum(t in ("attn", "xattn") for t in cfg.layer_types())
+    return count_params(cfg) - n_attn * inactive
 
 
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
-def _project_qkv(p: Params, h_in: torch.Tensor, cfg: ModelConfig):
+def _project_qkv(p: Params, h_in: torch.Tensor, cfg: ModelConfig,
+                 kv_src: Optional[torch.Tensor] = None):
+    """q from ``h_in`` (B, S, D), k and v from ``kv_src`` (B, T, D) (the
+    cross-attention features; ``h_in`` itself by default), each split into
+    heads: (B, H, S, hd) and (B, HK, T, hd)."""
     cd = cfg.compute_dtype
+    src = h_in if kv_src is None else kv_src
     q = h_in @ p["wq"].to(cd)
-    k = h_in @ p["wk"].to(cd)
-    v = h_in @ p["wv"].to(cd)
+    k = src @ p["wk"].to(cd)
+    v = src @ p["wv"].to(cd)
     if "bq" in p:
         q = q + p["bq"].to(cd)
         k = k + p["bk"].to(cd)
         v = v + p["bv"].to(cd)
-    b, s = h_in.shape[0], h_in.shape[1]
+    b, s, t = h_in.shape[0], h_in.shape[1], src.shape[1]
     q = q.reshape(b, s, cfg.n_heads, cfg.hd).transpose(1, 2)
-    k = k.reshape(b, s, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
-    v = v.reshape(b, s, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
+    k = k.reshape(b, t, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
+    v = v.reshape(b, t, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
     return q, k, v
 
 
@@ -298,21 +334,55 @@ def _merge_heads(out: torch.Tensor, p: Params, cfg: ModelConfig):
     return out @ p["wo"].to(cfg.compute_dtype)
 
 
-def _mlp(p: Params, x: torch.Tensor, cfg: ModelConfig,
-         norm=None) -> torch.Tensor:
+def _mlp_core(m: Params, h_in: torch.Tensor, cfg: ModelConfig):
+    """The dense MLP on normed input: SwiGLU, or GELU (tanh form, the JAX
+    package's ``jax.nn.gelu``) between two matrices."""
     cd = cfg.compute_dtype
-    m = p["mlp"]
-    h_in = (norm or rmsnorm)(x, p["ln2"], cfg.norm_eps)
-    if cfg.n_experts > 0:
-        return x + moe_lib.moe_apply(m, h_in, cfg.moe_args(), cd)
     if cfg.gated_mlp:
-        return x + swiglu(h_in, m["w_gate"], m["w_up"], m["w_down"], cd)
-    h = F.gelu(h_in @ m["w_up"].to(cd), approximate="tanh")
-    return x + h @ m["w_down"].to(cd)
+        return swiglu(h_in, m["w_gate"], m["w_up"], m["w_down"], cd)
+    return gelu_mlp(h_in, m["w_up"], None, m["w_down"], None, cd)
 
 
-def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig, norm=None):
-    x = (norm or rmsnorm)(x, params["final_norm"], cfg.norm_eps)
+def _mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h_in = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    if cfg.n_experts > 0:
+        return x + moe_lib.moe_apply(p["mlp"], h_in, cfg.moe_args(),
+                                     cfg.compute_dtype)
+    return x + _mlp_core(p["mlp"], h_in, cfg)
+
+
+def _cross_attention(p: Params, x: torch.Tensor,
+                     cross: Optional[torch.Tensor], cfg: ModelConfig):
+    """The ``xattn`` branch: queries from ``x`` normed by ``lnx`` (an
+    encoder-decoder's decoder layer) or ``ln1`` (a vision layer), keys and
+    values from the features ``cross``, every position attended (no
+    mask).  A single query takes ``dot``, as in the JAX package; a longer
+    one ``cfg.attention_impl``, so ``hopper`` launches the flash kernel with
+    ``causal=False`` and S != T.  ``cross`` None attends over ``x``
+    itself, as the JAX package's does."""
+    h_in = rmsnorm(x, p["lnx" if "lnx" in p else "ln1"], cfg.norm_eps)
+    q, k, v = _project_qkv(p["xattn"], h_in, cfg, kv_src=cross)
+    out = attn_lib.attend(q, k, v, impl="dot" if x.shape[1] == 1 else
+                          cfg.attention_impl, causal=False,
+                          kv_chunk=cfg.attn_chunk)
+    return _merge_heads(out, p["xattn"], cfg)
+
+
+def _gate(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(g.float()).to(x.dtype)
+
+
+def _xattn_block(p: Params, x: torch.Tensor, cross: Optional[torch.Tensor],
+                 cfg: ModelConfig) -> torch.Tensor:
+    """A vision layer: gated cross-attention, then a gated MLP, each
+    residual scaled by the tanh of its gate."""
+    x = x + _gate(p["gate_attn"], x) * _cross_attention(p, x, cross, cfg)
+    h_in = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    return x + _gate(p["gate_mlp"], x) * _mlp_core(p["mlp"], h_in, cfg)
+
+
+def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig):
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
@@ -344,40 +414,92 @@ def _recurrent_out(p: Params, x: torch.Tensor, y: torch.Tensor, btype: str,
 # ---------------------------------------------------------------------------
 # Full-sequence forward (training shape, prefill)
 # ---------------------------------------------------------------------------
+def _remat(params: Params, cfg: ModelConfig, emit_cache: bool) -> bool:
+    return (cfg.remat and not emit_cache and torch.is_grad_enabled()
+            and any(t.requires_grad for t in tree_leaves(params)))
+
+
+def _run_layers(stack: List[Params], x: torch.Tensor, cfg: ModelConfig,
+                cross: Optional[torch.Tensor], causal: bool, emit_cache: bool,
+                remat: bool):
+    """Every layer of one stack in order: (x, one cache entry per layer)."""
+    positions = torch.arange(x.shape[1], device=x.device)
+    caches = []
+    for btype, p in zip(cfg.layer_types(), stack):
+        if remat:
+            x = checkpoint(_layer, btype, p, x, positions, cfg, False, cross,
+                           causal, use_reentrant=False)[0]
+            continue
+        x, entry = _layer(btype, p, x, positions, cfg, emit_cache, cross,
+                          causal)
+        caches.append(entry)
+    return x, caches
+
+
+def encode(params: Params, cfg: ModelConfig,
+           enc_inputs: torch.Tensor) -> torch.Tensor:
+    """The encoder over precomputed front-end embeddings (B, T, D): its
+    self-attention runs unmasked (``causal=False``; ``hopper`` launches the
+    flash kernel so), then ``enc_final_norm``.  Returns (B, T, D) in the
+    compute dtype, the features the decoder's cross-attention reads."""
+    x = enc_inputs.to(cfg.compute_dtype)
+    x, _ = _run_layers(params["encoder"], x, encoder_config(cfg), None,
+                       False, False, _remat(params, cfg, False))
+    return rmsnorm(x, params["enc_final_norm"], cfg.norm_eps)
+
+
+def _cross_features(params: Params, cfg: ModelConfig, enc_inputs,
+                    img_embeds) -> Optional[torch.Tensor]:
+    if cfg.encoder_decoder:
+        if enc_inputs is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder model needs "
+                             f"encoder inputs (enc_inputs)")
+        return encode(params, cfg, enc_inputs)
+    if cfg.frontend == "vision":
+        if img_embeds is None:
+            raise ValueError(f"{cfg.name}: a vision model needs image "
+                             f"embeddings (img_embeds)")
+        return img_embeds.to(cfg.compute_dtype)
+    return None
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            enc_inputs: Optional[torch.Tensor] = None,
+            img_embeds: Optional[torch.Tensor] = None,
             emit_cache: bool = False):
     """tokens (B, S) int -> (logits (B, S, V), cache or None).
 
-    With ``emit_cache`` (prefill) the cache holds one entry per layer and
-    ``pos`` S: an attention layer's K/V in the compute dtype (with an
+    An encoder-decoder config needs ``enc_inputs`` (B, T, D), the front
+    end's frame embeddings, which :func:`encode` turns into the features
+    every decoder layer's cross-attention reads; a vision config needs
+    ``img_embeds`` (B, T, D), which its gated layers read as they are.
+    With ``emit_cache`` (prefill) the cache holds one entry per layer,
+    ``pos`` S and, for a cross-attention config, ``cross`` (those
+    features): an attention layer's K/V in the compute dtype (with an
     ``attn_window`` shorter than S, only the last ``attn_window`` positions,
     position p in slot p % attn_window, as the JAX package keeps them), a
-    recurrent layer's decode state.  Attention runs through
-    ``cfg.attention_impl``; ``hopper`` launches the flash-attention kernel
-    once per attention layer on a CUDA tensor.  A recurrent config needs S
-    to be a multiple of ``min(scan_chunk, S)``."""
-    _check_decoder_only(cfg)
+    recurrent layer's decode state, ``{}`` for a gated cross-attention
+    layer.  Attention runs through ``cfg.attention_impl``; ``hopper``
+    launches the flash-attention kernel once per self-attention and per
+    cross-attention on a CUDA tensor (and once per encoder layer).  A
+    recurrent config needs S to be a multiple of ``min(scan_chunk, S)``."""
+    cross = _cross_features(params, cfg, enc_inputs, img_embeds)
     x = _embed(params, tokens, cfg)
-    positions = torch.arange(tokens.shape[1], device=x.device)
-    remat = (cfg.remat and not emit_cache and torch.is_grad_enabled()
-             and any(t.requires_grad for t in tree_leaves(params)))
-    caches = []
-    for btype, p in zip(cfg.layer_types(), params["layers"]):
-        if remat:
-            x = checkpoint(_layer, btype, p, x, positions, cfg, False,
-                           use_reentrant=False)[0]
-            continue
-        x, entry = _layer(btype, p, x, positions, cfg, emit_cache)
-        caches.append(entry)
+    x, caches = _run_layers(params["layers"], x, cfg, cross, True,
+                            emit_cache, _remat(params, cfg, emit_cache))
     logits = _logits(params, x, cfg)
     if not emit_cache:
         return logits, None
-    return logits, {"layers": caches,
-                    "pos": torch.tensor(tokens.shape[1], dtype=torch.int32)}
+    cache = {"layers": caches,
+             "pos": torch.tensor(tokens.shape[1], dtype=torch.int32)}
+    if cross is not None:
+        cache["cross"] = cross
+    return logits, cache
 
 
 def _layer(btype: str, p: Params, x: torch.Tensor, positions: torch.Tensor,
-           cfg: ModelConfig, emit_cache: bool):
+           cfg: ModelConfig, emit_cache: bool,
+           cross: Optional[torch.Tensor] = None, causal: bool = True):
     """One layer of the full-sequence forward: (x, its cache entry or
     None)."""
     if btype in RECURRENT:
@@ -390,14 +512,15 @@ def _layer(btype: str, p: Params, x: torch.Tensor, positions: torch.Tensor,
             y, state = y
             entry = {btype: state}
         return _recurrent_out(p, x, y, btype, cfg), entry
+    if btype == "xattn":
+        return _xattn_block(p, x, cross, cfg), {} if emit_cache else None
     h_in = rmsnorm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _project_qkv(p["attn"], h_in, cfg)
     q = apply_rope(q, positions[None, None], cfg.rope_theta)
     k = apply_rope(k, positions[None, None], cfg.rope_theta)
-    out = attn_lib.attend(q, k, v, impl=cfg.attention_impl, causal=True,
+    out = attn_lib.attend(q, k, v, impl=cfg.attention_impl, causal=causal,
                           window=cfg.attn_window, kv_chunk=cfg.attn_chunk)
-    x = x + _merge_heads(out, p["attn"], cfg)
-    x = _mlp(p, x, cfg)
+    x = _finish_block(p, x, out, cfg, cross)
     if not emit_cache:
         return x, None
     w = cfg.attn_window
@@ -414,23 +537,35 @@ def _layer(btype: str, p: Params, x: torch.Tensor, positions: torch.Tensor,
 def loss_fn(params: Params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Mean next-token NLL of ``batch`` (``tokens``, ``labels``, optional
-    ``mask``), fp32.  Differentiable in every parameter leaf: the layers
-    cast each weight where they use it, so gradients reach the fp32
-    masters."""
-    logits, _ = forward(params, cfg, batch["tokens"])
+    ``mask``, and ``enc_inputs`` or ``img_embeds`` for a cross-attention
+    config), fp32.  Differentiable in every parameter leaf: the layers cast
+    each weight where they use it, so gradients reach the fp32 masters."""
+    logits, _ = forward(params, cfg, batch["tokens"],
+                        enc_inputs=batch.get("enc_inputs"),
+                        img_embeds=batch.get("img_embeds"))
     return softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
 
 
 def decay_mask(cfg: ModelConfig) -> Params:
     """Which parameter leaves AdamW decays, as the JAX package decays them:
     a leaf of ndim >= 2 in ITS layout, where the layers of whole pattern
-    units are stacked on a leading axis (every leaf of theirs, norms and
-    biases included, is then >= 2-D) and the remainder layers, the
-    embeddings and the final norm are not."""
-    stacked = cfg.n_super * len(cfg.pattern_unit())
-    tree = map_params(lambda _, shape: len(shape) >= 2, param_shapes(cfg))
-    tree["layers"] = [map_params(lambda *_: True, layer) if i < stacked
-                      else layer for i, layer in enumerate(tree["layers"])]
+    units (and every encoder layer) are stacked on a leading axis, so a
+    stacked layer's leaf of ndim >= 1 (norms and biases included, not the
+    scalar gates) decays, and the remainder layers, the embeddings and the
+    final norms keep the rule as they are."""
+    shapes = param_shapes(cfg)
+
+    def stacked_layers(stack, n_stacked):
+        # a stacked layer's leaf has one more axis there
+        return [map_params(lambda _, shape, i=i: len(shape) + (
+            i < n_stacked) >= 2, layer) for i, layer in enumerate(stack)]
+
+    tree = map_params(lambda _, shape: len(shape) >= 2, shapes)
+    tree["layers"] = stacked_layers(
+        shapes["layers"], cfg.n_super * len(cfg.pattern_unit()))
+    if cfg.encoder_decoder:
+        tree["encoder"] = stacked_layers(shapes["encoder"],
+                                         len(shapes["encoder"]))
     return tree
 
 
@@ -450,14 +585,31 @@ def _layer_entries(cfg: ModelConfig, batch: int, kv_shape: tuple,
                    device) -> List[Dict[str, Any]]:
     """One cache entry per layer: zero K/V of ``kv_shape`` (rows or an
     arena) for an attention layer, a zero state of ``batch`` rows for a
-    recurrent one."""
+    recurrent one, nothing for a gated cross-attention layer (it reads the
+    cache's ``cross``)."""
     def entry(btype):
         if btype in RECURRENT:
             return _state_entry(cfg, btype, batch, device)
+        if btype == "xattn":
+            return {}
         return {name: torch.zeros(kv_shape, dtype=cfg.compute_dtype,
                                   device=device) for name in ("k", "v")}
 
     return [entry(t) for t in cfg.layer_types()]
+
+
+def _with_cross(cache: Dict[str, Any], cfg: ModelConfig, batch: int,
+                max_seq: int, device) -> Dict[str, Any]:
+    """Add the zero cross-attention rows of a cross-attention config:
+    (batch, max_seq, D) for an encoder-decoder, (batch, img_seq, D) for a
+    vision config, in the compute dtype (the JAX package's shapes).  The
+    caller writes each row's features (``encode``'s output, or the image
+    embeddings) in place."""
+    if cfg.encoder_decoder or cfg.frontend == "vision":
+        t = max_seq if cfg.encoder_decoder else cfg.img_seq
+        cache["cross"] = torch.zeros((batch, t, cfg.d_model),
+                                     dtype=cfg.compute_dtype, device=device)
+    return cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
@@ -465,14 +617,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     """Dense decode cache: each attention layer's K and V as ``(batch,
     n_kv_heads, t, head_dim)`` in the compute dtype, ``t = min(attn_window,
     max_seq)`` (a rolling buffer, position p in slot p % t, for a windowed
-    config), each recurrent layer's state, and one position ``pos`` shared
-    by the batch."""
-    _check_decoder_only(cfg)
+    config), each recurrent layer's state, one position ``pos`` shared
+    by the batch, and a cross-attention config's zero ``cross`` rows."""
     t = min(cfg.attn_window or max_seq, max_seq)
-    return {"layers": _layer_entries(cfg, batch,
-                                     (batch, cfg.n_kv_heads, t, cfg.hd),
-                                     device),
-            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+    cache = {"layers": _layer_entries(cfg, batch,
+                                      (batch, cfg.n_kv_heads, t, cfg.hd),
+                                      device),
+             "pos": torch.zeros((), dtype=torch.int32, device=device)}
+    return _with_cross(cache, cfg, batch, max_seq, device)
 
 
 def init_slot_cache(cfg: ModelConfig, n_slots: int, max_seq: int, *,
@@ -491,8 +643,9 @@ def reset_slot_state(cfg: ModelConfig, cache: Dict[str, Any],
     either slot layout: its position and its recurrent states, which carry
     no position and would leak across tenants (zeroed, as ``init_cache``
     makes them).  KV rows and pages need no clearing (position masks hide
-    stale entries), and the paged block tables survive.  In place, so a
-    captured step's buffers stay the same storage; returns the cache."""
+    stale entries), the paged block tables survive, and so does the slot's
+    cross row (the JAX package's rule: its owner writes it).  In place, so
+    a captured step's buffers stay the same storage; returns the cache."""
     for layer in cache["layers"]:
         for btype in RECURRENT:
             for t in layer.get(btype, {}).values():
@@ -513,25 +666,20 @@ def _qkv_at(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _finish_block(p: Params, x: torch.Tensor, out: torch.Tensor,
-                  cfg: ModelConfig, norm=None) -> torch.Tensor:
+                  cfg: ModelConfig,
+                  cross: Optional[torch.Tensor]) -> torch.Tensor:
+    """An attention block after its attention: the output projection, an
+    encoder-decoder's cross-attention branch, the MLP, each a residual."""
     x = x + _merge_heads(out, p["attn"], cfg)
-    return _mlp(p, x, cfg, norm)
-
-
-def rmsnorm_multi(x: torch.Tensor, weight: torch.Tensor,
-                  eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm of a window x (B, M, d), each offset normalized as the
-    single-token step's contiguous (B, 1, d) tensor.  On a card the order
-    in which a row's mean of squares is summed depends on how many rows
-    one reduction holds, so a (B·M)-row norm can differ in the last bit
-    from the step's B-row norm; per offset it cannot."""
-    return torch.cat([layers.rmsnorm(x[:, i:i + 1].contiguous(), weight, eps)
-                      for i in range(x.shape[1])], dim=1)
+    if "xattn" in p and cross is not None:
+        x = x + _cross_attention(p, x, cross, cfg)
+    return _mlp(p, x, cfg)
 
 
 def _dense_attn_block(p: Params, x: torch.Tensor, layer: Dict[str, Any],
                       cfg: ModelConfig, pos: torch.Tensor,
-                      active: Optional[torch.Tensor]) -> torch.Tensor:
+                      active: Optional[torch.Tensor],
+                      cross: Optional[torch.Tensor]) -> torch.Tensor:
     q, k, v = _qkv_at(p, x, cfg, pos)
     k_cache, v_cache = layer["k"], layer["v"]
     b, t = x.shape[0], k_cache.shape[2]
@@ -549,7 +697,7 @@ def _dense_attn_block(p: Params, x: torch.Tensor, layer: Dict[str, Any],
         cache_rows[rows, :, slot] = new
     out = attn_lib.decode_attention(q, k_cache, v_cache, pos=pos,
                                     window=cfg.attn_window)
-    return _finish_block(p, x, out, cfg)
+    return _finish_block(p, x, out, cfg, cross)
 
 
 def _recurrent_block(btype: str, p: Params, x: torch.Tensor,
@@ -573,27 +721,31 @@ def _recurrent_block(btype: str, p: Params, x: torch.Tensor,
 def _decode_layers(params: Params, cfg: ModelConfig, cache: Dict[str, Any],
                    tokens: torch.Tensor, active: Optional[torch.Tensor],
                    attn_block) -> torch.Tensor:
-    """Embed, every layer in order (``attn_block(p, x, layer)`` for an
-    attention layer, the shared recurrent step otherwise), the head: the one
-    body the dense, paged and static steps share."""
+    """Embed, every layer in order (``attn_block(p, x, layer, cross)`` for
+    an attention layer, the shared recurrent and gated cross-attention
+    steps otherwise), the head: the one body the dense, paged and static
+    steps share.  ``cross`` is the cache's cross rows, or None."""
+    cross = cache.get("cross")
     x = _embed(params, tokens, cfg)
     for btype, p, layer in zip(cfg.layer_types(), params["layers"],
                                cache["layers"]):
         if btype in RECURRENT:
             x = _recurrent_block(btype, p, x, layer, cfg, active)
+        elif btype == "xattn":
+            x = _xattn_block(p, x, cross, cfg)
         else:
-            x = attn_block(p, x, layer)
+            x = attn_block(p, x, layer, cross)
     return _logits(params, x, cfg)
 
 
 def _decode_step_impl(params: Params, cfg: ModelConfig,
                       cache: Dict[str, Any], tokens: torch.Tensor,
                       active: Optional[torch.Tensor]):
-    _check_decoder_only(cfg)
     pos = cache["pos"]
     logits = _decode_layers(
         params, cfg, cache, tokens, active,
-        lambda p, x, layer: _dense_attn_block(p, x, layer, cfg, pos, active))
+        lambda p, x, layer, cross: _dense_attn_block(p, x, layer, cfg, pos,
+                                                     active, cross))
     pos.copy_(pos + 1 if active is None else torch.where(active, pos + 1,
                                                          pos))
     return logits, cache
@@ -615,7 +767,8 @@ def decode_step_slots(params: Params, cfg: ModelConfig,
     tokens (B, 1) int: each slot's next token; active (B,) bool;
     ``cache["pos"]`` (B,) int32.  Each active slot's K/V is written at its
     position, its recurrent states advance, and its position advances; an
-    inactive slot keeps its rows, states and position.  The per-slot math is
+    inactive slot keeps its rows, states and position.  Cross-attention
+    reads each slot's ``cache["cross"]`` row.  The per-slot math is
     :func:`decode_step`'s, which makes continuous batching's tokens those of
     the static server.  Returns (logits (B, 1, V), cache), the cache updated
     in place.
@@ -637,11 +790,11 @@ def init_slot_cache_paged(cfg: ModelConfig, n_slots: int, max_seq: int, *,
     slot's sequence lives in the pages its ``block_tables`` row names (page
     ``j`` holds positions ``[j * block_size, (j + 1) * block_size)``).  The
     last page is the trash page: inactive slots write there, and no table
-    names it.  One table row serves every layer.  Recurrent states stay
-    slot-major, as in the dense layout (they are O(1) in sequence length).
-    Sliding-window configs must serve on the dense layout.
+    names it.  One table row serves every layer.  Recurrent states and
+    cross-attention rows stay slot-major, as in the dense layout (they are
+    O(1) in the sequence's length).  Sliding-window configs must serve on
+    the dense layout.
     """
-    _check_decoder_only(cfg)
     if cfg.attn_window is not None:
         raise ValueError(
             "paged KV layout does not support sliding-window attention "
@@ -651,16 +804,18 @@ def init_slot_cache_paged(cfg: ModelConfig, n_slots: int, max_seq: int, *,
     if total_blocks is None:
         total_blocks = n_slots * blocks_per_slot
     shape = (total_blocks + 1, cfg.n_kv_heads, block_size, cfg.hd)
-    return {"layers": _layer_entries(cfg, n_slots, shape, device),
-            "pos": torch.zeros((n_slots,), dtype=torch.int32, device=device),
-            "block_tables": torch.zeros((n_slots, blocks_per_slot),
-                                        dtype=torch.int32, device=device)}
+    cache = {"layers": _layer_entries(cfg, n_slots, shape, device),
+             "pos": torch.zeros((n_slots,), dtype=torch.int32, device=device),
+             "block_tables": torch.zeros((n_slots, blocks_per_slot),
+                                         dtype=torch.int32, device=device)}
+    return _with_cross(cache, cfg, n_slots, max_seq, device)
 
 
 def _paged_attn_block(p: Params, x: torch.Tensor, layer: Dict[str, Any],
                       cfg: ModelConfig, pos: torch.Tensor,
                       block_tables: torch.Tensor, active: torch.Tensor,
-                      max_seq: int) -> torch.Tensor:
+                      max_seq: int,
+                      cross: Optional[torch.Tensor]) -> torch.Tensor:
     q, k, v = _qkv_at(p, x, cfg, pos)
     k_arena, v_arena = layer["k"], layer["v"]
     b = x.shape[0]
@@ -678,7 +833,7 @@ def _paged_attn_block(p: Params, x: torch.Tensor, layer: Dict[str, Any],
     out = attn_lib.paged_decode_attention(
         q, k_arena, v_arena, block_tables, pos, max_seq=max_seq,
         impl=cfg.paged_attention_impl)
-    return _finish_block(p, x, out, cfg)
+    return _finish_block(p, x, out, cfg, cross)
 
 
 def decode_step_slots_paged(params: Params, cfg: ModelConfig,
@@ -700,8 +855,8 @@ def decode_step_slots_paged(params: Params, cfg: ModelConfig,
     block_tables = cache["block_tables"]
     logits = _decode_layers(
         params, cfg, cache, tokens, active,
-        lambda p, x, layer: _paged_attn_block(p, x, layer, cfg, pos,
-                                              block_tables, active, max_seq))
+        lambda p, x, layer, cross: _paged_attn_block(
+            p, x, layer, cfg, pos, block_tables, active, max_seq, cross))
     pos.copy_(torch.where(active, pos + 1, pos))
     return logits, cache
 
@@ -709,16 +864,14 @@ def decode_step_slots_paged(params: Params, cfg: ModelConfig,
 def _multi_attn_block_paged(p: Params, x: torch.Tensor, layer: Dict[str, Any],
                             cfg: ModelConfig, pos: torch.Tensor,
                             block_tables: torch.Tensor, active: torch.Tensor,
-                            max_seq: int, stepwise: bool) -> torch.Tensor:
-    """Verification-window counterpart of :func:`_paged_attn_block`: x is
-    (B, M, d), M consecutive tokens per slot at positions pos..pos+M-1,
-    whose K/V goes into the slot's pages in one ``index_put_``; each query
-    attends over cache slots <= its own position (the freshly written
-    window prefix included, as M sequential single-token steps see it).
-    ``stepwise``: the norms and the attention per window offset, in the
-    single-token step's shapes."""
-    norm = rmsnorm_multi if stepwise else rmsnorm
-    h_in = norm(x, p["ln1"], cfg.norm_eps)
+                            max_seq: int,
+                            cross: Optional[torch.Tensor]) -> torch.Tensor:
+    """Window counterpart of :func:`_paged_attn_block`: x is (B, M, d), M
+    consecutive tokens per slot at positions pos..pos+M-1, whose K/V goes
+    into the slot's pages in one ``index_put_``; each query attends over
+    cache slots <= its own position (the freshly written window prefix
+    included, as M sequential single-token steps see it)."""
+    h_in = rmsnorm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _project_qkv(p["attn"], h_in, cfg)             # (B,H,M,hd)
     m = x.shape[1]
     wpos = pos[:, None] + torch.arange(m, dtype=pos.dtype,
@@ -747,9 +900,8 @@ def _multi_attn_block_paged(p: Params, x: torch.Tensor, layer: Dict[str, Any],
                        v.transpose(1, 2).to(v_arena.dtype))
 
     out = attn_lib.paged_decode_attention_multi(
-        q, k_arena, v_arena, block_tables, pos, max_seq=max_seq,
-        stepwise=stepwise)
-    return _finish_block(p, x, out, cfg, norm)
+        q, k_arena, v_arena, block_tables, pos, max_seq=max_seq)
+    return _finish_block(p, x, out, cfg, cross)
 
 
 def decode_multi_step_slots_paged(params: Params, cfg: ModelConfig,
@@ -764,24 +916,20 @@ def decode_multi_step_slots_paged(params: Params, cfg: ModelConfig,
     :func:`decode_step_slots_paged`.  Returns (logits (B, M, V), cache):
     logits[:, i] conditions on tokens[:, :i+1], so feeding the committed
     head plus k drafted tokens gives the target's greedy continuation at
-    every window offset in ONE step (speculative verification), and feeding
+    every window offset in ONE call (speculative verification), and feeding
     a prompt chunk replays prefill M tokens at a time (the draft's
     catch-up).
 
-    ``stepwise`` (the verify) runs the norms and the attention, whose
-    rounding on a card depends on how many rows one call holds, once per
-    window offset in the single-token step's shapes.  The projections, the
-    MLP (a MoE's router included) and the head run over all B·M rows at
-    once, so an offset's numbers equal a plain step's only where the GEMM
-    library rounds row i of the (B·M)-row product as it rounds the B-row
-    product.  On the CPU it does, and speculation commits plain decoding's
-    tokens.  On an H100 ``chip_smoke.py`` phase 7 gates that for
-    qwen2-1.5B at 8 slots x 3 tokens (24 rows); at 32 slots x 5 tokens
-    (160 rows) cuBLAS rounds the MLP's down projection otherwise (from 89
-    rows) and the tokens drift.  False runs the norms and the attention
-    over the whole window at once: the draft's catch-up, whose numbers only
-    steer proposals; per offset, its prompt-long windows cut forced
-    speculation's tok/s ~6x on an H100 (``chip_smoke.py`` phase 10).
+    ``stepwise`` (the verify) is M calls of :func:`decode_step_slots_paged`,
+    so each offset's logits are a plain step's bit for bit whatever the GEMM
+    library does with more rows (on an H100 cuBLAS rounds qwen2's 8960 x
+    1536 down projection otherwise from 89 rows: ``chip_smoke.py`` phase 7
+    gates 32 slots x 5 tokens), and its attention is the step's
+    (``cfg.paged_attention_impl``: the paged kernel under ``hopper``).  The
+    price: the verify reads every weight M times.  False runs the window as
+    one multi-token step on the gather path: the draft's catch-up, whose
+    numbers only steer proposals; step by step, its prompt-long windows cut
+    forced speculation's tok/s ~6x on an H100 (``chip_smoke.py`` phase 10).
 
     ``advance`` True moves each active slot's position by M; False leaves
     ``pos`` alone so the caller commits only the accepted prefix.
@@ -793,21 +941,30 @@ def decode_multi_step_slots_paged(params: Params, cfg: ModelConfig,
     Everything is in place, as in :func:`decode_step_slots_paged`: the
     arenas through ``index_put_``, ``pos`` through ``copy_``, so a CUDA graph
     of a step that calls this reads and writes the cache's own buffers.
-    The attention is the gather path whatever ``cfg.paged_attention_impl``
-    says: there is no multi-query kernel.  Requires an all-attention
-    config.
+    Requires an all-attention config (an encoder-decoder's decoder is one;
+    a gated cross-attention layer is not).
     """
     if any(t != "attn" for t in cfg.layer_types()):
         raise ValueError(
             "multi-token slot step requires an all-attention config: "
             "recurrent/SSM layer state has no multi-token slot step")
     pos = cache["pos"]
+    if stepwise:
+        pos0 = pos.clone()
+        logits = torch.cat([
+            decode_step_slots_paged(params, cfg, cache, tokens[:, i:i + 1],
+                                    active, max_seq=max_seq)[0]
+            for i in range(tokens.shape[1])], dim=1)
+        if not advance:
+            pos.copy_(pos0)
+        return logits, cache
     block_tables = cache["block_tables"]
+    cross = cache.get("cross")
     x = _embed(params, tokens, cfg)
     for p, layer in zip(params["layers"], cache["layers"]):
         x = _multi_attn_block_paged(p, x, layer, cfg, pos, block_tables,
-                                    active, max_seq, stepwise)
-    logits = _logits(params, x, cfg, rmsnorm_multi if stepwise else None)
+                                    active, max_seq, cross)
+    logits = _logits(params, x, cfg)
     if advance:
         pos.copy_(torch.where(active, pos + tokens.shape[1], pos))
     return logits, cache

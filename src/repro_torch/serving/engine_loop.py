@@ -362,9 +362,11 @@ class SlotEngine:
     # ---- slot hand-off (phase disaggregation) ----------------------------
     def export_slot(self, s: int) -> Dict:
         """Snapshot every per-slot tensor a request needs to resume on
-        another engine: its KV, recurrent states, position, prompt row,
-        feed state and sampled-output row.  This is the payload the
-        placement analyzer prices with the offload-overhead model.
+        another engine: its KV, recurrent states, position, the slot's
+        cross-attention row (an encoder-decoder's or vision config's
+        cache), prompt row, feed state and sampled-output row.  This is the
+        payload the placement analyzer prices with the offload-overhead
+        model.
 
         Every tensor is a fresh copy, queued on the current stream behind
         the engine's steps: the slot may be rebound and stepped (a queued
@@ -383,6 +385,9 @@ class SlotEngine:
             "last_tok": self._last_tok[s].clone(),
             "out_row": self._out_buf[s].clone(),
         }
+        cross = self.cache.get("cross")
+        if cross is not None:
+            state["cross"] = cross[s].clone()
         if self.kv_layout == "paged":
             lease = self.pool.lease(self.slots[s].rid)
             n_used = math.ceil(lease.written_tokens / self.pool.block_size)
@@ -417,7 +422,8 @@ class SlotEngine:
         engines.  ``skip_blocks`` leading logical pages are NOT landed
         (prefix sharing: the destination lease already maps them onto
         shared pages holding bit-identical content, which must not be
-        written)."""
+        written).  The slot's cross row is migrated, not shared: a
+        snapshot and an engine that disagree on having one raise."""
         if any(t.device != self.device for t in _tensor_leaves(state)):
             state = state_to_device(state, self.device)
         layout = state.get("layout", "dense")
@@ -426,7 +432,13 @@ class SlotEngine:
                 f"exported slot uses the {layout!r} KV layout but the "
                 f"importing engine runs {self.kv_layout!r} — phase engines "
                 f"must share a layout for exact migration")
-        if state.get("cross") is not None:
+        cross = self.cache.get("cross")
+        if cross is not None and state.get("cross") is None:
+            raise ValueError(
+                "cross-attention cache present on the importing engine "
+                "but the exported slot carries no cross row — the "
+                "exporting engine was built for a different config")
+        if cross is None and state.get("cross") is not None:
             raise ValueError(
                 "exported slot carries a cross-attention row but the "
                 "importing engine has no cross cache — silently dropping "
@@ -461,6 +473,8 @@ class SlotEngine:
                 for a, b in _tensor_pairs(layer, shipped):
                     a[s].copy_(b)
         self.cache["pos"][s].copy_(state["pos"])
+        if cross is not None:
+            cross[s].copy_(state["cross"])
         self._prompts[s].copy_(state["prompt"])
         self._plens[s].copy_(state["plen"])
         self._last_tok[s].copy_(state["last_tok"])
@@ -484,9 +498,9 @@ class SlotEngine:
 
     @staticmethod
     def state_nbytes(state: Dict) -> int:
-        """Byte size of an exported slot snapshot (the hand-off payload).
-        Non-tensor metadata (layout tag, written-token count, the ready
-        event) is free."""
+        """Byte size of an exported slot snapshot (the hand-off payload),
+        the cross row included.  Non-tensor metadata (layout tag,
+        written-token count, the ready event) is free."""
         return sum(int(t.nbytes) for t in _tensor_leaves(state))
 
 

@@ -28,12 +28,10 @@ whose chain head token is ``last_tok``):
 Every committed token is a target greedy continuation of the committed
 chain plain decode walks, so outputs are those of plain decoding wherever
 the verify step's logits equal sequential steps' (bit for bit under the
-``ref`` impl on the CPU, and on an H100 for the window ``chip_smoke.py``
-phase 7 gates, 8 slots x 3 tokens: the verify runs its norms and
-attention per window offset in the plain step's shapes, its products over
-the whole window, which cuBLAS rounds otherwise at wider windows such as
-32 x 5; with the ``hopper`` impl the plain step's kernel and the verify's
-gather path round differently).  Expected committed tokens per round is
+``ref`` impl on the CPU, and on an H100 for the windows ``chip_smoke.py``
+phase 7 gates, 8 slots x 3 tokens and 32 x 5: the verify is k+1 plain
+steps, so no product holds more rows than a plain step's, and under the
+``hopper`` impl it runs the plain step's kernel).  Expected committed tokens per round is
 sum_{i=1..k} alpha^i + 1 for per-token acceptance rate alpha
 (`core.cost_model.expected_tokens_per_round`).
 
@@ -178,8 +176,8 @@ class DraftEngine:
         multi-token step over that slot alone (a view of its position and
         block-table row; the arenas are shared), its window contracted at
         once (``stepwise=False``: the draft's numbers only steer its
-        proposals, and per offset a prompt-long window is a loop of
-        per-offset calls that cut forced speculation from 73.3 to 11.7
+        proposals, and step by step a prompt-long window is a loop of
+        single-token steps that cut forced speculation from 73.3 to 11.7
         tok/s on an H100 in ``chip_smoke.py`` phase 10)."""
         start = int(self.pos[slot])
         if int(target_pos) <= start:

@@ -210,8 +210,10 @@ def test_unported_parts_raise_with_their_roadmap_item(weights):
     """Parts whose modules are not ported raise, naming their ROADMAP item.
     The name is historical for ``plan=``: speculative decoding on the decode
     engine is ported, so a plan now builds the decoder beside it; and for
-    recurrent layers, which are ported too, so a hybrid config now builds
-    and only a cross-attention config is refused (item 7)."""
+    recurrent layers and cross-attention (item 7), which are ported too, so
+    a hybrid config and a gated cross-attention config now build (the
+    latter with a cross row per slot on both engines), and only the drift
+    hook is refused (item 6)."""
     plan = SpecPlan(draft_cfg=PCFG, draft_params=weights[1], k=2)
     spec = DisaggregatedEngineLoop(PCFG, weights[1], n_prefill_slots=1,
                                    n_decode_slots=1, max_seq=8, plan=plan,
@@ -225,10 +227,14 @@ def test_unported_parts_raise_with_their_roadmap_item(weights):
                                     n_decode_slots=1, max_seq=8,
                                     device="cpu")
     assert "rec" in built.decode.cache["layers"][0]
-    cross = dataclasses.replace(PCFG, block_pattern=("attn", "xattn"))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        DisaggregatedEngineLoop(cross, weights[1], n_prefill_slots=1,
-                                n_decode_slots=1, max_seq=8, device="cpu")
+    cross = dataclasses.replace(PCFG, cross_attn_every=2, frontend="vision",
+                                img_seq=4)
+    built = DisaggregatedEngineLoop(cross, PT.init_params(cross, 0,
+                                                          device="cpu"),
+                                    n_prefill_slots=1, n_decode_slots=2,
+                                    max_seq=8, device="cpu")
+    for eng, n in ((built.prefill, 1), (built.decode, 2)):
+        assert tuple(eng.cache["cross"].shape) == (n, 4, PCFG.d_model)
     dis = DisaggregatedEngineLoop(PCFG, weights[1], n_prefill_slots=1,
                                   n_decode_slots=1, max_seq=8, device="cpu")
     with pytest.raises(NotImplementedError, match="item 6"):

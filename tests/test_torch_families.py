@@ -492,9 +492,21 @@ def test_refusals_keep_the_reference_words(arch):
 @pytest.mark.parametrize("arch", ["seamless_m4t_medium",
                                   "llama32_vision_90b"])
 def test_cross_attention_archs_are_refused(arch):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pregistry.get(arch)
+    """The name is historical: the two cross-attention archs are ported
+    (tests/test_torch_cross.py holds them to the JAX package), so the
+    registry now resolves them to the JAX package's configs, and a MoE
+    config with gated cross-attention layers counts its parameters as the
+    JAX package does; only serve() still refuses them, with the JAX
+    package's own words (its serve is decoder-only too)."""
+    jmod, pmod = _modules(arch)
+    spec = pregistry.get(arch)
+    assert spec.config == pmod.CONFIG and spec.smoke == pmod.SMOKE
+    assert spec.config.name == jmod.CONFIG.name
     cfg = dataclasses.replace(_modules("phi35_moe")[1].SMOKE,
                               cross_attn_every=2)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        PT.count_params(cfg)
+    jcfg = dataclasses.replace(_modules("phi35_moe")[0].SMOKE,
+                               cross_attn_every=2)
+    assert PT.count_params(cfg) == JT.count_params(jcfg)
+    assert PT.count_active_params(cfg) == JT.count_active_params(jcfg)
+    assert (_message(api.serve, _opts(api, arch=arch), device="cpu")
+            == _message(japi.serve, _opts(japi, arch=arch)))

@@ -243,16 +243,32 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_unported_layer_types_are_refused():
-    """The name is historical: recurrent, Mamba and MoE layers are ported,
-    so what is refused now is cross-attention (a ``xattn`` layer), the
-    encoder-decoder and the vision front end, naming ROADMAP §1 item 7."""
+    """The name is historical: every layer type is ported now (recurrent,
+    Mamba and MoE layers, and cross-attention: a ``xattn`` layer, the
+    encoder-decoder and the vision front end), so each of these configs
+    counts its parameters as the JAX package does, its parameter tree
+    holds that many, and its cache carries the JAX package's cross rows:
+    (batch, max_seq, d) for an encoder-decoder, (batch, img_seq, d) for a
+    vision config, none for a decoder-only one."""
     hybrid = dataclasses.replace(PCFG, block_pattern=("rec", "attn"))
     assert PT.count_params(hybrid) > 0
-    for cfg in (dataclasses.replace(PCFG, block_pattern=("attn", "xattn")),
-                dataclasses.replace(PCFG, cross_attn_every=2),
-                dataclasses.replace(PCFG, encoder_decoder=True),
-                dataclasses.replace(PCFG, frontend="vision")):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            PT.count_params(cfg)
-        with pytest.raises(NotImplementedError, match="cross-attention"):
-            PT.init_cache(cfg, 1, 8, device="cpu")
+    fields = (dict(block_pattern=("attn", "xattn")),
+              dict(cross_attn_every=2),
+              dict(encoder_decoder=True, enc_layers=2),
+              dict(frontend="vision", img_seq=5))
+    for f in fields:
+        cfg = dataclasses.replace(PCFG, **f)
+        jcfg = dataclasses.replace(JCFG, **f)
+        assert PT.count_params(cfg) == JT.count_params(jcfg)
+        n = sum(t.numel() for t in jax.tree.leaves(
+            PT.init_params(cfg, device="cpu"),
+            is_leaf=lambda x: isinstance(x, torch.Tensor)))
+        jn = sum(a.size for a in jax.tree.leaves(
+            JT.init_params(jax.random.PRNGKey(0), jcfg)))
+        assert n == jn
+        cache = PT.init_cache(cfg, 1, 8, device="cpu")
+        jcross = JT.init_cache(jcfg, 1, 8)["cross"]
+        if jcross is None:
+            assert "cross" not in cache
+        else:
+            assert tuple(cache["cross"].shape) == jcross.shape

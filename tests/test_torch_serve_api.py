@@ -296,6 +296,9 @@ def test_serve_on_the_card_runs_the_paged_kernel(monkeypatch, weights):
 # registry
 # ---------------------------------------------------------------------
 def test_registry_resolves_the_ported_archs():
+    """The name is historical only in that every arch is ported now: the
+    two cross-attention archs resolve too, each to the JAX package's
+    config field by field (tests/test_torch_cross.py)."""
     assert pregistry.ARCH_NAMES == jregistry.ARCH_NAMES
     assert {k: dataclasses.astuple(v) for k, v in pregistry.SHAPES.items()} \
         == {k: dataclasses.astuple(v) for k, v in jregistry.SHAPES.items()}
@@ -308,11 +311,14 @@ def test_registry_resolves_the_ported_archs():
                     == jregistry.supports(want, shape))
     assert pregistry.get("qwen2_1_5b").config == pcfgs.CONFIG
     assert pregistry.get("alexnet").config is None
-    # every decoder-only config is ported (tests/test_torch_families.py
-    # holds them); the two cross-attention archs wait for item 7
+    # every config is ported (tests/test_torch_families.py holds the
+    # decoder-only ones, tests/test_torch_cross.py the cross-attention ones)
     assert pregistry.get("granite_34b").config.n_layers == 88
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pregistry.get("seamless_m4t_medium")
+    assert set(pregistry.all_archs()) == set(pregistry.ARCH_NAMES)
+    seamless = pregistry.get("seamless_m4t_medium")
+    assert (seamless.config.enc_layers, seamless.config.encoder_decoder) \
+        == (12, True)
+    assert pregistry.get("llama32_vision_90b").config.img_seq == 6404
     with pytest.raises(ModuleNotFoundError):
         pregistry.get("no_such_arch")
 

@@ -211,6 +211,67 @@ def test_multi_step_bitwise_equals_sequential(weights):
             assert torch.equal(a[name][:-1], b[name][:-1])
 
 
+class _ProductRows(torch.overrides.TorchFunctionMode):
+    """Records the rows of every product by a 2-D matrix (``@``,
+    ``matmul``, ``mm``, ``linear``): the left operand's elements over its
+    last axis."""
+
+    FUNCS = ("matmul", "__matmul__", "mm", "linear")
+
+    def __init__(self):
+        super().__init__()
+        self.rows = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if (getattr(func, "__name__", None) in self.FUNCS
+                and args[1].dim() == 2):
+            self.rows.append(args[0].numel() // args[0].shape[-1])
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("experts", [0, 4])
+@torch.no_grad()
+def test_verify_products_hold_the_plain_steps_rows(weights, experts):
+    """The verify (``stepwise=True``, M plain steps) runs every product by
+    a weight matrix (Q/K/V, ``wo``, the MLP or a MoE's router, the head)
+    once per window offset on the plain step's B rows, never on B·M, and
+    each offset's logits are the plain steps' bit for bit; the draft's
+    catch-up (``stepwise=False``) contracts all B·M rows at once."""
+    cfg = dataclasses.replace(TGT, n_experts=experts)
+    params = (weights[2] if not experts
+              else PT.init_params(cfg, 3, device="cpu"))
+    toks, active = _tokens(), torch.from_numpy(ACTIVE)
+
+    def prefix():
+        cache = _fresh(PT)
+        for i in range(5):
+            PT.decode_step_slots_paged(params, cfg, cache,
+                                       torch.from_numpy(toks[:, i:i + 1]),
+                                       active, max_seq=MAX)
+        return cache
+
+    window = torch.from_numpy(toks[:, 5:5 + M])
+    counts = {}
+    for stepwise in (True, False):
+        cache = prefix()
+        with _ProductRows() as probe:
+            logits, _ = PT.decode_multi_step_slots_paged(
+                params, cfg, cache, window, active, max_seq=MAX,
+                advance=False, stepwise=stepwise)
+        counts[stepwise] = probe.rows
+        if stepwise:
+            verify = logits
+    per_layer = 4 + (1 if experts else 3)          # q k v wo + MLP/router
+    assert len(counts[True]) == M * (cfg.n_layers * per_layer + 1)
+    assert max(counts[True]) == B and set(counts[True]) == {B}
+    assert max(counts[False]) == B * M
+    seq = prefix()
+    singles = [PT.decode_step_slots_paged(
+        params, cfg, seq, window[:, i:i + 1], active, max_seq=MAX)[0]
+        for i in range(M)]
+    assert torch.equal(verify, torch.cat(singles, dim=1))
+
+
 @torch.no_grad()
 def test_multi_step_equals_the_reference(weights):
     toks = _tokens()
@@ -262,12 +323,10 @@ def test_multi_step_rejects_non_attention():
 @pytest.mark.parametrize("b, m", [(8, 2), (8, 3), (32, 3)])
 @torch.no_grad()
 def test_multi_attention_offsets_equal_single_steps(b, m):
-    """Each window offset of the verify's attention is the single-token
-    attention at ``pos + i`` bit for bit: the offsets are contracted in the
-    plain step's shapes, so the card rounds them as it rounds a step.  The
-    verify's norms likewise (``rmsnorm_multi``)."""
+    """Each window offset of the multi-token attention (the draft's
+    catch-up, its offsets on the batch side of the products) is the
+    single-token attention at ``pos + i`` bit for bit on the CPU."""
     from repro_torch.models import attention as attn_lib
-    from repro_torch.models.layers import rmsnorm
 
     rng = np.random.default_rng(b * 10 + m)
     hq, hk, t, d = 12, 2, 40, 16
@@ -281,15 +340,6 @@ def test_multi_attention_offsets_equal_single_steps(b, m):
     for i in range(m):
         one = attn_lib.decode_attention(q[:, :, i:i + 1], k, v, pos=pos + i)
         assert torch.equal(out[:, :, i:i + 1], one), i
-    # the catch-up's batched form: the same numbers on the CPU
-    assert torch.equal(attn_lib.decode_attention_multi(q, k, v, pos=pos,
-                                                       stepwise=False), out)
-    x = torch.from_numpy(rng.standard_normal((b, m, 48), np.float32))
-    w = torch.from_numpy(rng.standard_normal(48, np.float32))
-    normed = PT.rmsnorm_multi(x.bfloat16(), w)
-    for i in range(m):
-        assert torch.equal(normed[:, i:i + 1],
-                           rmsnorm(x[:, i:i + 1].bfloat16(), w)), i
 
 
 # ---------------------------------------------------------------------

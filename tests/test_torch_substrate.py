@@ -289,8 +289,15 @@ def test_textfile_tokens_equal_the_reference_with_resume(tmp_path):
 
 
 def test_pipelines_refuse_what_is_not_ported(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        SyntheticLM(DataConfig(frontend="audio"), device="cpu")
+    """The name is historical: the audio and vision front-end stubs are
+    ported (the JAX package's draws, bitwise: tests/test_torch_cross.py),
+    so an audio pipeline now gives frame embeddings beside its tokens;
+    what is refused is a corpus too small for one sequence, and the card
+    when there is none."""
+    audio = next(SyntheticLM(DataConfig(global_batch=2, seq_len=8,
+                                        frontend="audio", d_model=4),
+                             device="cpu"))
+    assert tuple(audio["enc_inputs"].shape) == (2, 8, 4)
     small = tmp_path / "small.txt"
     small.write_bytes(b"abc")
     with pytest.raises(ValueError, match="too few"):
