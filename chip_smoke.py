@@ -78,13 +78,26 @@ Phases, each of which raises (and so exits nonzero) on a failed check:
              body), and phase 13's unmasked calls (causal=False): S = T =
              512 at seamless's heads (16 over 16, D 64), S = 512 against a
              ragged T = 6404 at llama-vision's (64 over 8, D 128), and
-             S = 37 against T = 100, on inputs that make every key tile
+             S = 37 against T = 100, and at head dim 16 (6 over 2 heads,
+             S = 37 against T = 100), on inputs that make every key tile
              count (sensitize: peaked rows, the last 4 keys each carrying
              a few rows, rows whose every key sits far below a zero
-             logit), each held within UNMASKED_REL of its plain output's
+             logit), each held within SENSITIZED_REL of its plain output's
              largest magnitude, and that limit checked to fail the plain
              version run without the last 4 keys, without the first key
              tile, and (T ragged) over zero keys up to the next tile;
+             the head dims the SMOKE configs (16) and recurrentgemma-2b
+             (256) give the kernel: D 16 causal and ragged (6 over 2
+             heads, S = T = 300), D 256 at recurrentgemma's attention (10
+             over 1 head, S = T = 4096, a window of 2048 that bites), both
+             on inputs that hold the mask's edges to account (plant_edges:
+             peaked rows, a few rows each with its key just inside and
+             just outside an edge of its mask at a large logit), held
+             within SENSITIZED_REL as the unmasked ones, with that limit
+             checked to fail the plain version with the causal edge one
+             key later or earlier, the window one key or one tile wider
+             or narrower, or without key tile 1 or the ragged last tile,
+             and the fp32 body at each (D 256 with a window of 64);
              times each beside its plain version,
              a library yardstick (index_select gather + SDPA for paged,
              SDPA on repeated KV heads for flash, with an explicit mask
@@ -126,7 +139,14 @@ Phases, each of which raises (and so exits nonzero) on a failed check:
              logits and state after a graph replay must equal an eager
              step's from the same state.  The dense layout and the static
              server must finish all 8 requests, and a --trace file must
-             pass benchmarks/check_regression.py's validate_trace.  Prints
+             pass benchmarks/check_regression.py's validate_trace.  Under
+             "ref", the JAX package's impl, the static server's tokens
+             (the requests in batches of one prompt length, padded to the
+             8 slots' rows) must equal the continuous engine's, and a
+             shared-prefix workload (8 requests over 4 slots, so that later
+             requests map live donors' prefix pages) must give the same
+             tokens with and without prefix sharing, bit for bit
+             (serving_identities).  Prints
              tok/s and TTFT p50 of the graph, eager, dense and static runs,
              in turns, median of three.
 9. placement — serve() with phase placement on the same model and
@@ -186,7 +206,10 @@ Phases, each of which raises (and so exits nonzero) on a failed check:
              two scan chunks (falcon), then serve() with phase 8's workload,
              its weights built once: falcon on the paged layout (graph and
              eager) and the dense layout, recurrentgemma (windowed) on the
-             dense layout (graph and eager), every run's tokens bitwise equal
+             dense layout (graph and eager) after phase 6's prefill of 512
+             tokens on the flash kernel (its 8 attention layers at head dim
+             256, a window of 2048; logits within PREFILL_RTOL of
+             "chunked"), every run's tokens bitwise equal
              to the first's; tok/s and peak memory.  The flash and paged
              launches of the phase must both be above 0.
 
@@ -244,7 +267,26 @@ Phases, each of which raises (and so exits nonzero) on a failed check:
              Prints ms per forward, tok/s, TTFT p50 and peak memory beside
              the card's name and power limit.
 
-Every main-path phase (4, 4b, 6, 7, 8, 9, 10, 11, 12, 13) sets every
+14. obs — the performance watchdog, latency curves and telemetry
+             feedback through serve() on the full-width qwen2-1.5B with
+             phase 8's workload on the paged kernel (run after phase 10,
+             on its weights), every burst synced and timed: --watchdog
+             --misprice F (F prices a 2-token step at 100x a 50 ms step
+             SLO, so admission starts at a token budget of 1) must alert
+             "fast", re-price and re-open the budget to all 8 slots;
+             --feed-cache and --persist-curves on one cache under build/,
+             twice: the second run must start priced from the first run's
+             fitted curve ("cache-curve"); --speculate --draft-k 2 under
+             --watchdog must have every round observed by the watchdog.
+             Each run's tokens must equal phase 8's graph run's bit for
+             bit.  serve()'s slot prefill runs no flash (its count there
+             is 0), so the served prompts are also prefilled on the flash
+             kernel in a run of their own, each prompt's logits held
+             within PREFILL_RTOL of chunked's.  Prints the
+             alerts, re-prices, the curve's points and tok/s with and
+             without the watchdog, in turns, median of three.
+
+Every main-path phase (4, 4b, 6, 7, 8, 9, 10, 11, 12, 13, 14) sets every
 kernel's launch count to 0 just before it and reads them all just after
 (4b's count covers its profile and its plan's run; 11 and 13 sum their
 runs, each counted so; 12's must all be 0).  The
@@ -259,7 +301,8 @@ phase (paged), at the shapes those phases give them, and the launches are
 those of phase 6 (flash) and 8 (paged).  "launches_by_phase" gives every
 kernel's count in every main-path phase, phase 10's under "speculation",
 phase 11's under "families", phase 12's under "train", phase 13's under
-"cross".
+"cross", phase 14's serve() runs under "obs" and its flash prefill of the
+served prompts under "served_prompts_prefill".
 Without a card, or outside a checkout of the repository, it exits nonzero
 before printing any result.  Imports nothing of JAX or of the JAX package.
 """
@@ -285,12 +328,13 @@ FP32_PEAK, BF16_PEAK, HBM_BW = 67e12, 989e12, 3.35e12   # H100 SXM datasheet
 TF32_PEAK = 495e12
 FP32_GEMM_PEAK = max(FP32_PEAK, TF32_PEAK / 3)
 TOL = {"float32": 2e-4, "bfloat16": 5e-2}               # tests/test_kernels.py
-# phase 5's unmasked flash cases (sensitized inputs): the kernel's largest
-# error over its plain output's largest magnitude.  A bf16 output rounds to
-# 2^-8 of a value, so two roundings apart are at most ~0.8%; a plain
-# version that drops the last 4 keys, the first key tile, or reads zero
-# keys past T moves it by tens of percent (printed beside each case)
-UNMASKED_REL = 2e-2
+# phase 5's flash cases on sensitized inputs (the unmasked ones, and the
+# causal ones at D 16 and 256): the kernel's largest error over its plain
+# output's largest magnitude.  A bf16 output rounds to 2^-8 of a value, so
+# two roundings apart are at most ~0.8%; a plain version that drops a key
+# tile, reads zero keys past T, or moves a mask edge by one key moves it by
+# tens of percent (printed beside each case)
+SENSITIZED_REL = 2e-2
 PROB_RTOL, PROB_ATOL = 2e-3, 2e-4               # tests/test_core_cnnlab.py
 LAYER_RTOL, LOGP_ATOL = 3e-5, 2e-4       # ~10x the card's 2.8e-6, 1.5e-5
 # bf16 through 28 layers of random weights: the kernel impl's logits against
@@ -317,6 +361,11 @@ PREFILL_TOKENS = 512
 # weights ~42 GB and their bf16 copy ~21 GB on the 80 GB card), its
 # (query, kv) heads
 PHI_LAYERS, PHI_HEADS = 8, (32, 8)
+# recurrentgemma-2b's attention layers: 10 query heads of 256 over 1 kv
+# head, a sliding window of 2048
+RG_HEADS, RG_WINDOW = (10, 1), 2048
+# phase 14: the step SLO the mispriced run's admission is held to
+OBS_STEP_SLO_MS = 50.0
 # phase 12: the train CLI's defaults (batch 8 x seq 128), 10 steps timed;
 # the flash backward at qwen2's (query, kv) heads over key chunks of 128,
 # and unmasked against TRAIN_CROSS_T keys (a short last chunk)
@@ -1054,14 +1103,44 @@ def sensitize(torch, q, k) -> None:
     q[:, :, 0, 0] = -100
 
 
+def plant_edges(torch, q, k, edges) -> None:
+    """Make a causal (B, HQ, S, D) x (B, HK, T, D) bf16 case hold its mask's
+    edges to account, in place: q x 4 (as in `sensitize`), and for the j-th
+    (row, inside, outside) of ``edges`` the keys at ``inside`` (the last one
+    the row attends at that edge of its mask) and ``outside`` (the first
+    one it must not) aligned with that row of query head j % HQ at a logit
+    of ~30.  The right mask gives the row the value at ``inside``; a mask
+    one key off at that edge halves that value's weight or drops it."""
+    d, g = q.shape[-1], q.shape[1] // k.shape[1]
+    q.mul_(4)
+    for j, (row, inside, outside) in enumerate(edges):
+        head = j % q.shape[1]
+        r = q[:, head, row].float()                             # (B, D)
+        k[:, head // g, [inside, outside]] = (r * (30 * d ** 0.5) / r.pow(
+            2).sum(-1, keepdim=True)).to(k.dtype)[:, None]
+
+
+def masked_plain(torch, q, k, v, keep):
+    """The plain attention of kernels/ref.py's attention_ref under an
+    explicit (S, T) mask ``keep``: a faulty kernel's output."""
+    hq, hk = q.shape[1], k.shape[1]
+    k, v = (x.float().repeat_interleave(hq // hk, dim=1) for x in (k, v))
+    logits = torch.einsum("bhsd,bhtd->bhst", q.float(), k) * (
+        1.0 / q.shape[-1] ** 0.5)
+    probs = torch.softmax(logits.masked_fill(~keep, float("-inf")),
+                          dim=-1).nan_to_num(0.0)
+    return torch.einsum("bhst,bhtd->bhsd", probs, v).to(q.dtype)
+
+
 def lm_kernel_cases(torch, F, ref, kern, rng):
     """(kernel, label, dtype, main_path, flops, bytes, kernel_fn, plain_fn,
     library_fn, faults) for the attention kernels at qwen2-1.5B's head
     shapes in bf16, and flash's edge cases; main_path marks the shapes the
     prefill and serve phases give them; the "phi-" cases are phase 11's
-    (phi3.5-MoE's heads).  ``faults`` is None, or for the unmasked cases
-    the plain version run as a faulty kernel would ({name: fn}): their
-    error must pass UNMASKED_REL where the kernel's must not.  Operations
+    (phi3.5-MoE's heads).  ``faults`` is None, or for the sensitized cases
+    (unmasked, or causal with planted edges) the plain version run as a
+    faulty kernel would ({name: fn}): their
+    error must pass SENSITIZED_REL where the kernel's must not.  Operations
     and bytes count what these inputs need: the keys each query attends
     (causal, and for paged only positions <= pos), each input read once
     and the output written once."""
@@ -1115,12 +1194,37 @@ def lm_kernel_cases(torch, F, ref, kern, rng):
 
     def flash_case(label, b, s, main, tk=None, hd=d, window=None,
                    dtype="bfloat16", q_offset=None, heads=(hq, hk),
-                   causal=True):
+                   causal=True, edges=None):
         hq, hk = heads
         tk = s if tk is None else tk
         q = t(b, hq, s, hd, dtype=dtype)
         k, v = t(b, hk, tk, hd, dtype=dtype), t(b, hk, tk, hd, dtype=dtype)
         faults = None
+        if edges is not None:           # a causal case held at its edges
+            plant_edges(torch, q, k, edges)
+            qpos = torch.arange(s, device="cuda")[:, None] + (
+                tk - s if q_offset is None else q_offset)
+            kpos = torch.arange(tk, device="cuda")[None, :]
+
+            def keep(late=0, win=window):
+                m = kpos <= qpos + late
+                return m if win is None else m & (kpos > qpos - win)
+
+            def faulty(m):
+                return lambda: masked_plain(torch, q, k, v, m)
+            faults = {"causal edge one key later": faulty(keep(late=1)),
+                      "causal edge one key earlier": faulty(keep(late=-1)),
+                      "without key tile 1": faulty(
+                          keep() & ((kpos < 64) | (kpos >= 128)))}
+            if window is not None:
+                for w, what in ((-64, "one tile narrower"),
+                                (-1, "one key narrower"),
+                                (1, "one key wider"),
+                                (64, "one tile wider")):
+                    faults[f"window {what}"] = faulty(keep(win=window + w))
+            if tk % 64:
+                faults["without the ragged last key tile"] = faulty(
+                    keep() & (kpos < tk - tk % 64))
         if not causal:                  # every key: the cross-attention
             sensitize(torch, q, k)
             q_offset, pairs = 0, s * tk
@@ -1198,6 +1302,27 @@ def lm_kernel_cases(torch, F, ref, kern, rng):
     flash_case("xattn-vision-512x6404", 1, PREFILL_TOKENS, False, tk=6404,
                heads=(64, 8), causal=False)
     flash_case("xattn-s37-t100", 1, 37, False, tk=100, causal=False)
+    # the head dims every SMOKE config (16) and recurrentgemma-2b (256)
+    # give the kernel: D 16 causal and ragged and unmasked with S != T (6
+    # over 2 heads), D 256 at recurrentgemma's attention (10 over 1 head,
+    # a window of 2048 that bites at 4096), and the fp32 body at each
+    # the causal ones with rows planted at their mask's edges: on the
+    # diagonal (key i inside, i + 1 outside) at tile ends and in the ragged
+    # tile, and for D 256 at the window's far edge (key i - 2047 inside,
+    # i - 2048 outside), at a tile boundary (keys 64 and 63) among them
+    flash_case("d16-ragged-300", 1, 300, False, hd=16, heads=(6, 2),
+               edges=[(i, i, i + 1) for i in (63, 255, 298)])
+    flash_case("xattn-d16-s37-t100", 1, 37, False, tk=100, hd=16,
+               heads=(6, 2), causal=False)
+    flash_case("rg-d256-w2048-4096", 1, 4096, False, hd=256,
+               heads=RG_HEADS, window=RG_WINDOW,
+               edges=[(i, i - RG_WINDOW + 1, i - RG_WINDOW)
+                      for i in (2111, 3000, 4095)]
+               + [(i, i, i + 1) for i in (127, 1000, 2500)])
+    flash_case("fp32-d16-1x300", 1, 300, False, hd=16, heads=(6, 2),
+               dtype="float32")
+    flash_case("fp32-d256-w64-1x300", 1, 300, False, hd=256, heads=RG_HEADS,
+               window=64, dtype="float32")
     return cases
 
 
@@ -1255,18 +1380,19 @@ def phase_lm_kernels(torch, F, ref, kern):
                                        rtol=TOL[dtype], atol=TOL[dtype])
         else:
             scale = want.float().abs().max().item()
-            ok = ok and err <= UNMASKED_REL * scale
+            ok = ok and err <= SENSITIZED_REL * scale
             readings = {f: (g().float() - want.float()).abs().max().item()
                         / scale for f, g in faults.items()}
             print(f"[lm-kernels] {name} {label}: max_abs_err {err:.3e} = "
                   f"{err / scale:.4e} of max|plain| {scale:.4f} (limit "
-                  f"{UNMASKED_REL}); the plain version " + ", ".join(
+                  f"{SENSITIZED_REL}); the plain version " + ", ".join(
                       f"{f}: {r:.4f}" for f, r in readings.items()),
                   flush=True)
-            if min(readings.values()) <= UNMASKED_REL:
+            if min(readings.values()) <= SENSITIZED_REL:
                 failed.append(f"{name} {label}: a fault's reading "
                               f"{readings} within the limit: the inputs do "
-                              f"not hold every key tile to account")
+                              f"not hold the kernel's keys and mask to "
+                              f"account")
         ms, plain_ms, lib_ms = (time_ms(torch, f)
                                 for f in (fn, plain, library))
         dev_ms, lib_dev_ms = (time_ms(torch, f, queued=True)
@@ -1434,10 +1560,11 @@ def phase_prefill(torch, kern, cfg, params, tag="prefill"):
           and bool(torch.isfinite(logits).all()),
           f"prefill logits {tuple(logits.shape)} not finite")
     check(len(cache["layers"]) == cfg.n_layers, "prefill cache layers")
-    check(launches["flash_attention"] == cfg.n_layers
-          and sum(launches.values()) == cfg.n_layers,
+    n_attn = cfg.layer_types().count("attn")
+    check(launches["flash_attention"] == n_attn > 0
+          and sum(launches.values()) == n_attn,
           f"prefill launches {launches}, expected flash_attention x "
-          f"{cfg.n_layers} and nothing else")
+          f"{n_attn} (one per attention layer) and nothing else")
     check(routed or rel <= PREFILL_RTOL, f"prefill logits differ from "
           f"the chunked impl by {rel:.3e} of their largest magnitude")
     check(len(shadow.rels) == cfg.layer_types().count("attn")
@@ -1831,6 +1958,82 @@ def graph_step_matches_eager(torch, cfg, params) -> None:
           f"graph replay {graph_ms:.3f}, eager {eager_ms:.3f}", flush=True)
 
 
+def serving_identities(torch, cfg, params) -> None:
+    """The JAX package's two serving identities that phases 7-10 do not
+    hold, under its own impl ("ref"), at full width and depth: phase 8's
+    8 requests through the static server (batches of one prompt length,
+    padded to the 8 slots' rows) against the continuous engine, per request
+    bitwise; and a shared-prefix workload of 8 requests over 4 slots (later
+    requests map a live donor's published prefix pages) served with and
+    without prefix sharing, bitwise, with some prefix actually shared."""
+    import dataclasses
+    from repro_torch.serving import EngineLoop
+    from repro_torch.serving.api import Server
+    from repro_torch.serving.request import (prefix_shared_workload,
+                                             synthetic_workload)
+
+    ref_cfg = dataclasses.replace(cfg, paged_attention_impl="ref")
+    max_seq = PROMPT + GEN
+
+    def workload():                     # phase 8's: the serve CLI's mix
+        return synthetic_workload(SERVE_ENTRY["requests"], rate=1e9,
+                                  vocab=cfg.vocab,
+                                  prompt_lens=(PROMPT // 2, PROMPT),
+                                  gen_lens=(GEN // 8, GEN // 2, GEN), seed=1)
+
+    def served(reqs, n_slots=SLOTS, **kw):
+        loop = EngineLoop(ref_cfg, params, n_slots=n_slots, max_seq=max_seq,
+                          block_size=PAGE, **kw)
+        loop.warmup()
+        check(loop.run(reqs).n_done == len(reqs), "identity run unfinished")
+        torch.cuda.synchronize()
+        return {r.rid: r.output for r in reqs}
+
+    continuous = served(workload())
+    server = Server(ref_cfg, params, max_seq)
+    static, groups = {}, {}
+    for r in workload():
+        groups.setdefault(r.prompt_len, []).append(r)
+    for grp in groups.values():
+        for i in range(0, len(grp), SLOTS):
+            chunk = grp[i:i + SLOTS]
+            rows = [r.prompt for r in chunk]
+            rows += [rows[-1]] * (SLOTS - len(rows))
+            toks = server.generate(
+                torch.from_numpy(np.stack(rows)).cuda(),
+                max(r.max_new_tokens for r in chunk)).cpu().numpy()
+            for j, r in enumerate(chunk):
+                static[r.rid] = toks[j, :r.max_new_tokens].tolist()
+    same = static == continuous
+    agree = np.mean([np.mean(np.asarray(static[rid]) == np.asarray(toks))
+                     for rid, toks in continuous.items()])
+    print(f"[serve-entry] {cfg.name} ref: static server's tokens (batches "
+          f"of one prompt length, {SLOTS} rows) bitwise equal to the "
+          f"continuous engine's: {same} ({agree:.4f} of tokens)", flush=True)
+    check(same, "under the ref impl the static server's greedy tokens "
+          "differ from the continuous engine's")
+
+    def shared_workload():
+        return prefix_shared_workload(
+            SERVE_ENTRY["requests"], rate=1e9, vocab=cfg.vocab,
+            shared_prefix_len=PROMPT // 2, suffix_lens=(PROMPT // 4,
+                                                        PROMPT // 2),
+            gen_lens=(GEN // 8, GEN // 2, GEN), seed=1)
+
+    unshared = served(shared_workload(), n_slots=SLOTS // 2)
+    reqs = shared_workload()
+    shared = served(reqs, n_slots=SLOTS // 2, prefix_sharing=True)
+    n_shared = sum(r.shared_tokens for r in reqs)
+    same = shared == unshared
+    print(f"[serve-entry] {cfg.name} ref: prefix-shared tokens bitwise "
+          f"equal to unshared: {same} ({n_shared} prompt tokens of "
+          f"{sum(r.prompt_len for r in reqs)} mapped from live donors' "
+          f"pages, {sum(r.shared_tokens > 0 for r in reqs)} of "
+          f"{len(reqs)} requests)", flush=True)
+    check(n_shared > 0, "no request shared a prefix: the gate is empty")
+    check(same, "under the ref impl prefix sharing changes greedy tokens")
+
+
 def phase_serve_entry(torch, kern, cfg, params):
     """serve() through the entry point: graph vs eager bitwise, launches
     counted through the replays, the dense layout, the static server and
@@ -1887,6 +2090,7 @@ def phase_serve_entry(torch, kern, cfg, params):
           flush=True)
     check(same, "the graph's greedy tokens differ from the eager step's")
     graph_step_matches_eager(torch, cfg, params)
+    serving_identities(torch, cfg, params)
 
     trace = ROOT / "build" / "serve_entry_trace.json"
     trace.parent.mkdir(parents=True, exist_ok=True)
@@ -1925,7 +2129,7 @@ def phase_serve_entry(torch, kern, cfg, params):
     print(f"[serve-entry] dense-layout tokens equal to the paged kernel's: "
           f"{dense_agree:.4f} (reported, not gated: the kernel is close to "
           f"the plain attention, not bitwise equal)", flush=True)
-    return launches
+    return launches, graph.outputs
 
 
 def phase_placement(torch, kern, cfg, smi: str):
@@ -2282,6 +2486,167 @@ def phase_speculation(torch, kern, cfg, params, smi: str):
     return launches
 
 
+def phase_obs(torch, kern, cfg, params, plain_outputs, smi: str):
+    """14. The watchdog, latency curves and telemetry feedback through
+    serve() on the full-width model, phase 8's workload on the paged kernel
+    (every burst synced and timed): a mispriced run the watchdog must
+    correct, two feed-cache/persist-curves runs (the second primed), a
+    forced speculating run whose rounds the watchdog observes, every one
+    with phase 8's graph run's tokens; tok/s with and without the watchdog
+    in turns.  serve()'s prefill runs no flash, so the served prompts are
+    also prefilled on the flash kernel, each held to chunked as phase 6
+    holds its prompt.  Returns the launches by kernel of the serve() runs
+    and of that prefill run."""
+    import dataclasses
+    from repro_torch.core import device_models
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import PerfWatchdog
+    from repro_torch.obs.curves import curve_points_from_cache
+    from repro_torch.profiling.bench import dtype_name
+    from repro_torch.profiling.cache import ProfileCache
+    from repro_torch.serving import api
+    from repro_torch.serving import speculative as spec_lib
+    from repro_torch.serving.batcher import step_time_model
+
+    n_req = SERVE_ENTRY["requests"]
+    total = {name: 0 for name in kern}
+
+    def run(tag, **fields):
+        for fn in kern.values():
+            fn.launches = 0
+        report = api.serve(serve_options(api, **fields))
+        torch.cuda.synchronize()
+        for name, fn in kern.items():
+            total[name] += fn.launches
+        done = sum(len(r.output) == r.max_new_tokens for r in report.requests)
+        same = report.outputs == plain_outputs
+        print(f"[obs] {tag}: requests_done={done} tok/s="
+              f"{report.summary['tok_per_s']:.1f} tokens bitwise equal to "
+              f"phase 8's graph run: {same}", flush=True)
+        check(done == n_req, f"{tag}: {done} of {n_req} requests finished")
+        check(same, f"{tag}: tokens differ from phase 8's graph run")
+        return report
+
+    # a price 100x the step SLO at 2 tokens pins the budget to 1; the
+    # watchdog must see the card is far faster and re-open it
+    max_len = SERVE_ENTRY["prompt_len"] + SERVE_ENTRY["gen_len"]
+    factor = (100.0 * OBS_STEP_SLO_MS / 1e3 / step_time_model(
+        cfg, max_len, 2, device=device_models.get("nvidia-h100")))
+    mis = run("misprice", watchdog=True, misprice=factor,
+              step_slo_ms=OBS_STEP_SLO_MS)
+    rep, adm = mis.watchdog, mis.admission[0]
+    print(f"[obs] misprice x{factor:.4g} (step SLO {OBS_STEP_SLO_MS} ms): "
+          f"{len(rep['alerts'])} alerts ("
+          + ", ".join(f"{a['direction']} ewma={a['ewma_ratio']:.3e} at "
+                      f"batch {a['batch']}" for a in rep["alerts"])
+          + f"), {len(rep['reprices'])} re-prices ("
+          + ", ".join(f"{r['pricing']}: budget {r['token_budget_old']} -> "
+                      f"{r['token_budget']}" for r in rep["reprices"])
+          + f"); final budget {adm['token_budget']}/{adm['n_slots']} "
+          f"({adm['price_source']})", flush=True)
+    check(any(a["direction"] == "fast" for a in rep["alerts"]),
+          f"misprice: no fast alert {rep['alerts']}")
+    check(rep["reprices"] and rep["reprices"][0]["token_budget_old"] == 1,
+          f"misprice: the budget was not pinned to 1 and re-priced "
+          f"{rep['reprices']}")
+    check(adm["token_budget"] == SLOTS, f"misprice: final budget "
+          f"{adm['token_budget']}, expected all {SLOTS} slots")
+
+    # telemetry into the profile cache, then a run primed from its curve
+    path = ROOT / "build" / "obs_curves_cache.json"
+    path.unlink(missing_ok=True)
+    curves = [run(f"curves run {i + 1}", feed_cache=str(path),
+                  persist_curves=str(path)) for i in range(2)]
+    cache = ProfileCache.load(str(path))
+    fed = cache.measurements(source="serving-telemetry")
+    points = curve_points_from_cache(cache, cfg, kv_len=max_len,
+                                     dtype=dtype_name(cfg.compute_dtype))
+    sources = [c.admission[0]["price_source"] for c in curves]
+    print(f"[obs] curves: {len(fed)} telemetry entries under "
+          f"{cache.env['device_name']}; step ms by batch "
+          + ", ".join(f"{b}: {t * 1e3:.3f}" for b, t in sorted(
+              points.items()))
+          + f"; pricing of run 1 {sources[0]}, run 2 {sources[1]}",
+          flush=True)
+    check(len(points) >= 2 and sources == ["analytic", "cache-curve"],
+          f"curves: points {points}, price sources {sources}; expected the "
+          f"second run primed from the first run's curve")
+
+    # forced speculation under the watchdog: every round synced, observed
+    observed, inside = [], []
+    spec_dispatch, observe = spec_lib.spec_dispatch, PerfWatchdog.observe_burst
+
+    def counted_dispatch(*args, **kwargs):
+        inside.append(True)
+        try:
+            return spec_dispatch(*args, **kwargs)
+        finally:
+            inside.pop()
+
+    def counted_observe(self, *args, **kwargs):
+        if inside:
+            observed.append(kwargs["steps"])
+        return observe(self, *args, **kwargs)
+
+    spec_lib.spec_dispatch = counted_dispatch
+    PerfWatchdog.observe_burst = counted_observe
+    try:
+        spec = run("speculating k 2 under the watchdog", speculate=True,
+                   draft_k=2, watchdog=True)
+    finally:
+        spec_lib.spec_dispatch, PerfWatchdog.observe_burst = (spec_dispatch,
+                                                              observe)
+    rounds = spec.speculation["n_rounds"]
+    print(f"[obs] speculating: {rounds} rounds, {len(observed)} observed "
+          f"by the watchdog (steps per round "
+          f"{min(observed, default=0):.3f}-{max(observed, default=0):.3f}), "
+          f"{len(spec.watchdog['alerts'])} alerts, "
+          f"{len(spec.watchdog['reprices'])} re-prices", flush=True)
+    check(rounds > 0 and len(observed) == rounds,
+          f"speculating: {rounds} rounds, {len(observed)} observed")
+
+    # serve()'s slot prefill runs the plain attention, not flash (as the
+    # JAX package's does): the served prompts prefilled on the flash
+    # kernel, a prefill run of its own, each held to chunked as phase 6
+    hopper = dataclasses.replace(cfg, attention_impl="hopper")
+    plain = dataclasses.replace(cfg, attention_impl="chunked")
+    for fn in kern.values():
+        fn.launches = 0
+    prompts = [torch.from_numpy(np.asarray(r.prompt, np.int64))[None].cuda()
+               for r in mis.requests]
+    with torch.no_grad():
+        got = [T.forward(params, hopper, x)[0] for x in prompts]
+        torch.cuda.synchronize()
+        prefill = {name: fn.launches for name, fn in kern.items()}
+        rels = [_rel(g, T.forward(params, plain, x)[0])
+                for g, x in zip(got, prompts)]
+    del got
+    print(f"[obs] flash prefill of the {n_req} served prompts: launches "
+          f"{prefill}; logits against chunked's: max_rel_err "
+          f"{max(rels):.3e} (limit {PREFILL_RTOL})", flush=True)
+    check(prefill["flash_attention"] == n_req * cfg.n_layers
+          and sum(prefill.values()) == prefill["flash_attention"],
+          f"served prompts' prefill launches {prefill}")
+    check(max(rels) <= PREFILL_RTOL, f"served prompts' flash prefill "
+          f"differs from chunked by {max(rels):.3e} of its largest logit")
+
+    # tok/s with and without the watchdog (every burst synced), in turns
+    rows = {"plain": [], "watchdog": []}
+    for _ in range(3):
+        rows["plain"].append(run("plain").summary["tok_per_s"])
+        rows["watchdog"].append(run("watchdog", watchdog=True)
+                                .summary["tok_per_s"])
+    for name, vals in rows.items():
+        print(f"[obs] {name}: tok/s={statistics.median(vals):.1f} (runs "
+              f"{', '.join(f'{v:.1f}' for v in vals)}) ({smi})", flush=True)
+    print(f"[obs] launches of the serve() runs {total} (their prefill runs "
+          f"no flash); of the served prompts' flash prefill {prefill}",
+          flush=True)
+    check(total["paged_attention"] > 0, f"obs: launches {total}, expected "
+          f"paged > 0")
+    return total, prefill
+
+
 def _free(torch) -> None:
     import gc
     gc.collect()
@@ -2421,6 +2786,8 @@ def phase_families(torch, kern, smi: str):
               flush=True)
         if "mamba" in cfg.layer_types():
             forward_ms(torch, cfg, params, smi)
+        else:                            # D 256 attention on the kernel
+            add(phase_prefill(torch, kern, cfg, params, tag="families"))
         serve_family(torch, kern, api, cfg, params, layouts, total, smi)
         del params
         _free(torch)
@@ -3183,11 +3550,15 @@ def main() -> None:
           f"bf16 copy in {time.perf_counter() - t0:.1f} s", flush=True)
     prefill_launches = phase_prefill(torch, kern, QWEN2, params)
     serve_launches, _, _ = phase_serve(torch, kern, QWEN2, params)
-    entry_launches = phase_serve_entry(torch, kern, QWEN2, params)
+    entry_launches, entry_outputs = phase_serve_entry(torch, kern, QWEN2,
+                                                      params)
     # 9. phase placement and disaggregated serving through the entry point
     placement_launches = phase_placement(torch, kern, QWEN2, smi)
     # 10. speculative decoding through the entry point
     spec_launches = phase_speculation(torch, kern, QWEN2, params, smi)
+    # 14. the watchdog, curves and telemetry feedback (on these weights)
+    obs_launches, obs_prefill_launches = phase_obs(torch, kern, QWEN2,
+                                                   params, entry_outputs, smi)
     del params
     # 11. the MoE and recurrent families
     family_launches = phase_families(torch, kern, smi)
@@ -3200,7 +3571,9 @@ def main() -> None:
                 "serve_entry": entry_launches,
                 "placement": placement_launches,
                 "speculation": spec_launches, "families": family_launches,
-                "train": train_launches, "cross": cross_launches}
+                "train": train_launches, "cross": cross_launches,
+                "obs": obs_launches,
+                "served_prompts_prefill": obs_prefill_launches}
     home = {"flash_attention": "prefill", "paged_attention": "serve_entry"}
 
     rows = []

@@ -30,8 +30,10 @@
 // producer loads Q once and streams K and V tiles (64 keys) through 2-stage
 // shared-memory rings with TMA: 3-D tensor maps (D, rows, heads), so rows
 // past S or T come back as zeros rather than the next head's, 128-byte
-// (D = 32: 64-byte) swizzle, mbarriers for each stage full and freed, K and
-// V apart so a K stage is refilled as soon as Q K^T has read it.  The
+// (D = 32: 64-byte, D = 16: 32-byte) swizzle, so a box is at most 64
+// columns and a row of D = 128 or 256 takes 2 or 4 boxes; mbarriers for
+// each stage full and freed, K and V apart so a K stage is refilled as
+// soon as Q K^T has read it.  The
 // consumer runs S = Q K^T as wgmma m64n64k16 with both operands K-major in
 // shared memory, masks and runs the online softmax on the fp32 accumulator
 // fragment (row max and sum over the 4 lanes of a quad), turns P into bf16
@@ -50,6 +52,13 @@
 // query heads of a kv group per block sharing each K/V tile (one block per
 // SM, its two warpgroups in lockstep), and Q K_{i+1}^T issued under the
 // softmax of tile i (ptxas serialized the products).
+//
+// Head dims 16, 32, 64, 128 and 256, as the reference's kernel takes any
+// D its models use (16 in every SMOKE config, 256 in recurrentgemma-2b).
+// At D = 16, Q K^T is one k16 step and P V an m64n16k16 product.  At
+// D = 256, P V is m64n256k16: the output alone holds 128 fp32 registers a
+// thread beside S's 32 and P's 16, and the block's five 32 KB tiles take
+// 161 KB of shared memory, one block an SM.
 //
 // fp32 — the CUDA cores.  A block of 256 threads owns 64 query rows of one
 // head; each thread holds a 4 x 4 tile of scores and a 4 x D/16 tile of the
@@ -245,8 +254,9 @@ struct Tile {
   static constexpr int kChunks = D / kChunkCols;
   static constexpr int kChunkBytes = 64 * kRowBytes;
   static constexpr int kBytes = 64 * D * 2;
-  // wgmma descriptor layout: 1 = 128-byte swizzle, 2 = 64-byte
-  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;
+  // wgmma descriptor layout: 1 = 128-byte swizzle, 2 = 64-byte, 3 = 32-byte
+  static constexpr uint64_t kLayout =
+      kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
   // smem: Q, K[2], V[2], then 9 mbarriers; + slack to align to 1024
   static constexpr size_t kSmem = 5 * (size_t)kBytes + 9 * 8 + 1024;
 };
@@ -328,6 +338,22 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// d (m64 x n16, fp32) += A (registers, bf16) @ B (smem, N-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[8],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // d (m64 x n32, fp32) += A (registers, bf16) @ B (smem, N-major)
 __device__ __forceinline__ void wgmma_rs(float (&d)[16],
                                          const uint32_t (&a)[4],
@@ -406,6 +432,67 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (m64 x n256, fp32) += A (registers, bf16) @ B (smem, N-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -715,8 +802,9 @@ bool encode(CUtensorMap* map, const void* base, int rows, int heads) {
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            G::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : CU_TENSOR_MAP_SWIZZLE_64B,
+            G::kRowBytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+            : G::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                 : CU_TENSOR_MAP_SWIZZLE_32B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -760,7 +848,7 @@ cudaError_t run(const void* q, const void* k, const void* v, void* out, int b,
 
 // out (B, HQ, S, D) = softmax(q k^T * scale + mask) v for q (B, HQ, S, D),
 // k/v (B, HK, T, D), query i at key position i + q_offset; window <= 0
-// means no window; D in {32, 64, 128}.
+// means no window; D in {16, 32, 64, 128, 256}.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int b, int hq,
                                      int hk, int s, int t, int d,
@@ -768,6 +856,9 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                      float scale, int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   switch (d) {
+    case 16:
+      return run<16>(q, k, v, out, b, hq, hk, s, t, q_offset, causal, window,
+                     scale, dtype, st);
     case 32:
       return run<32>(q, k, v, out, b, hq, hk, s, t, q_offset, causal, window,
                      scale, dtype, st);
@@ -776,6 +867,9 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                      scale, dtype, st);
     case 128:
       return run<128>(q, k, v, out, b, hq, hk, s, t, q_offset, causal,
+                      window, scale, dtype, st);
+    case 256:
+      return run<256>(q, k, v, out, b, hq, hk, s, t, q_offset, causal,
                       window, scale, dtype, st);
     default:
       return cudaErrorInvalidValue;

@@ -20,7 +20,7 @@ import torch
 from . import _build
 
 SOURCE = "flash_attention.cu"
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 # query and key rows per tile, and the fp32 body's row padding
 # (csrc/flash_attention.cu BQ, BKV, kPad)
 BQ, BKV, PAD = 64, 64, 4

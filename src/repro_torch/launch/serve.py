@@ -23,8 +23,11 @@ table.  ``--placement disagg`` serves on a prefill and a decode slot engine
 ``--speculate`` prices draft-model speculative decoding against plain decode
 and engages it where it wins (``--draft-k K`` forces depth K, ``--draft-arch``
 names the draft), colocated or disaggregated; it prints the
-``[serve] speculation: ...`` lines.  Flags whose modules are not ported yet
-(the watchdog and telemetry feedback, the production meshes) exit with the
+``[serve] speculation: ...`` lines.  ``--watchdog`` (``--misprice F`` injects
+a pricing error it must correct), ``--feed-cache`` and ``--persist-curves``
+serve on the colocated loop and print the ``[serve] watchdog`` and
+``[serve] curves`` lines.  Flags whose modules are not ported yet (those
+three on the disaggregated loop, the production meshes) exit with the
 ROADMAP item that ports them.
 """
 from __future__ import annotations

@@ -44,10 +44,20 @@ paged-attention kernel and the target verifies k+1 positions per round.
 When the draft is the target (the default draft is qwen2_1_5b, seed 0),
 the draft shares the target engine's weights.
 
+Observability rides it too: ``--trace``, ``--metrics-out`` and
+``--slo-report``; ``--watchdog`` (with ``--drift-gate`` and the injected
+``--misprice``) re-prices admission mid-run when the observed step cost
+drifts from the price; ``--feed-cache`` flushes the run's burst timings
+(and a speculating run's measured acceptance) into the profile cache, and
+``--persist-curves`` primes the next run's pricing from the latency curve
+fitted to them.  These three time every burst with a sync, and serve on the
+colocated loop (speculating or not).
+
 Options whose modules are not ported yet pass ``validate()`` as they do in
 the JAX package and then raise ``NotImplementedError`` in ``serve``, naming
-the ROADMAP item that ports them: the watchdog and telemetry feedback (§1
-item 6) and the production meshes (item 9).
+the ROADMAP item that ports them: the watchdog, telemetry feedback and
+curves on the disaggregated loop, whose re-placement and live migration
+are not ported (§1 item 6c), and the production meshes (item 9).
 """
 from __future__ import annotations
 
@@ -62,9 +72,11 @@ from ..configs import registry
 from ..core.engines import ENGINES_BY_NAME
 from ..launch.mesh import device_assignment
 from ..models import transformer as T
-from ..obs import (AcceptanceTracker, Observability, Tracer, default_clock,
+from ..obs import (AcceptanceTracker, Observability, PerfWatchdog,
+                   TelemetryFeedback, Tracer, default_clock,
                    format_slo_report, slo_attainment, write_metrics,
                    write_trace)
+from ..profiling.bench import dtype_name
 from . import placement as placement_lib
 from .disagg import DisaggregatedEngineLoop
 from .engine_loop import EngineLoop
@@ -302,15 +314,23 @@ class ServeOptions:
         return self
 
 
-def refuse_unported(options: ServeOptions) -> None:
+def refuse_unported(options: ServeOptions, *,
+                    disagg: Optional[bool] = None) -> None:
     """Raise NotImplementedError for a valid option whose module the port
-    does not have yet, naming the ROADMAP §1 item that ports it."""
+    does not have yet, naming the ROADMAP §1 item that ports it.
+    ``disagg`` says whether the disaggregated loop runs; None takes it from
+    the options alone (``--placement disagg``), before ``auto`` has
+    chosen."""
     e, o = options.engine, options.observability
+    if disagg is None:
+        disagg = options.placement.placement == "disagg"
     unported = (
         (e.mesh != "host", f"--mesh {e.mesh}", "item 9 (sharding)"),
-        (o.watchdog or o.feed_cache or o.persist_curves,
-         "--watchdog, --feed-cache and --persist-curves",
-         "item 6 (the rest of obs)"),
+        (disagg and bool(o.watchdog or o.feed_cache or o.persist_curves),
+         "--watchdog, --feed-cache and --persist-curves on the "
+         "disaggregated loop",
+         "item 6c (re-placement and live migration on the disaggregated "
+         "loop)"),
     )
     for asked, flags, item in unported:
         if asked:
@@ -416,24 +436,68 @@ def _calibrated_device(cache_path: str, engine_name: str, device, say):
     return model
 
 
+def _feed_cache_path(options: ServeOptions) -> str:
+    from ..profiling.cache import DEFAULT_CACHE_PATH
+    o = options.observability
+    return DEFAULT_CACHE_PATH if o.feed_cache is True else o.feed_cache
+
+
 def _acceptance_prior(options: ServeOptions, device) -> Tuple[float, str]:
-    """Acceptance rate to price speculation with: a measured rate from the
-    --calibrated-cache (under this device's environment), else the
-    optimistic engagement prior.  The JAX package also reads the
-    --feed-cache and --persist-curves caches; the port refuses those
-    options until ROADMAP §1 item 6 ports them."""
+    """Acceptance rate to price speculation with: a measured rate from any
+    cache this run touches (--feed-cache, --persist-curves,
+    --calibrated-cache; under this device's environment), else the
+    optimistic engagement prior."""
     from ..profiling.acceptance import cached_acceptance
     from ..profiling.cache import ProfileCache
-    p, s = options.pricing, options.speculative
+    o, p, s = options.observability, options.pricing, options.speculative
     draft = s.draft_arch or EFFECTIVE_DEFAULTS["draft_arch"]
-    path = p.calibrated_cache
-    if path and os.path.exists(path):
+    candidates = []
+    if o.feed_cache:
+        candidates.append(_feed_cache_path(options))
+    if o.persist_curves:
+        candidates.append(o.persist_curves)
+    if p.calibrated_cache:
+        candidates.append(p.calibrated_cache)
+    for path in candidates:
+        if not os.path.exists(path):
+            continue
         rate = cached_acceptance(
             ProfileCache.load(path, strict=False, device=device),
             draft_arch=draft, target_arch=options.workload.arch)
         if rate is not None:
             return rate, f"measured:{path}"
     return DEFAULT_ACCEPTANCE_PRIOR, "prior"
+
+
+def _prime_curves(persist_curves: Optional[str], cfg, kv_len: int, batcher,
+                  device, say: Callable) -> None:
+    """--persist-curves start-up leg: fit the latency(batch) curve from the
+    telemetry a previous run fed into the cache and install it as the
+    decode batcher's pricing — a restarted server prices from the last
+    run's observed curve instead of re-warming through the watchdog.  Only
+    entries of this device's environment count."""
+    if not persist_curves:
+        return
+    from ..obs.curves import curve_points_from_cache, fit_latency_curve
+    from ..profiling.cache import ProfileCache
+    if not os.path.exists(persist_curves):
+        say(f"[serve] curves: {persist_curves} does not exist yet "
+            f"(first run warms it)", flush=True)
+        return
+    cache = ProfileCache.load(persist_curves, strict=False, device=device)
+    points = curve_points_from_cache(cache, cfg, kv_len=kv_len,
+                                     dtype=dtype_name(cfg.compute_dtype))
+    curve = fit_latency_curve(points, source="cache-curve")
+    if curve is None:
+        say(f"[serve] curves: {persist_curves} holds "
+            f"{len(points)} usable batch point(s) — need >= 2 for a "
+            f"curve; pricing stays analytic", flush=True)
+        return
+    detail = batcher.reprice(curve.predict, source="cache-curve")
+    say(f"[serve] curves: primed {batcher.phase} pricing from "
+        f"{persist_curves} (batches {list(curve.batches)}, "
+        f"token budget {detail['token_budget_old']} -> "
+        f"{detail['token_budget']})", flush=True)
 
 
 def _serve_static(options: ServeOptions, cfg, params, device, say
@@ -700,14 +764,38 @@ def serve(options: ServeOptions, *, device="cuda", verbose: bool = False,
             batcher.reprice(lambda n: spec_plan.decision.spec_step_s * n,
                             source="speculation")
 
-    # tracing only when asked (NullTracer otherwise); the registry always
-    # (it backs the hand-off ledger and the metrics dump)
-    obs = Observability(tracer=Tracer() if o.trace else None)
+    # one observability bundle for whichever loop runs: tracing only when
+    # asked (NullTracer otherwise), the registry always (it backs the
+    # hand-off ledger and the metrics dump), feedback only with feed_cache
+    # or persist_curves and the watchdog only when asked (each syncs every
+    # burst to time it)
+    watchdog = None
+    if o.watchdog:
+        watchdog = (PerfWatchdog() if o.drift_gate is None
+                    else PerfWatchdog(drift_gate=o.drift_gate))
+    obs = Observability(
+        tracer=Tracer() if o.trace else None,
+        feedback=(TelemetryFeedback(cfg, kv_len=max_len, device=device,
+                                    dtype=dtype_name(cfg.compute_dtype))
+                  if o.feed_cache or o.persist_curves else None),
+        watchdog=watchdog)
+
+    def _misprice(dev):
+        """Inject an admission-pricing error for watchdog runs: the
+        device model scaled by --misprice (on the colocated loop, both
+        phases are the one batcher's)."""
+        if o.misprice is None:
+            return dev
+        from ..core import device_models
+        if dev is None:
+            dev = device_models.get(p.device_model)
+        return placement_lib.drift_scaled_device(dev, o.misprice)
     # auto placement only disaggregates when the analyzer says the split
     # wins; an explicit --placement disagg always runs the two-engine loop
     # (same-engine disagg measures the bare phase-boundary overhead)
     if pre_eng is not None and (pl.placement == "disagg"
                                 or pre_eng.name != dec_eng.name):
+        refuse_unported(options, disagg=True)
         engine = DisaggregatedEngineLoop(
             cfg, params,
             n_prefill_slots=pl.prefill_slots or e.slots,
@@ -746,7 +834,7 @@ def serve(options: ServeOptions, *, device="cuda", verbose: bool = False,
         loop_kwargs = dict(
             n_slots=e.slots, max_seq=max_len, kv_layout=kv_layout,
             total_blocks=e.total_blocks, prefix_sharing=e.prefix_sharing,
-            device_name=p.device_model, device_model=device_model,
+            device_name=p.device_model, device_model=_misprice(device_model),
             step_slo_s=step_slo_s, obs=obs, device=device,
             cuda_graph=cuda_graph)
         if spec_plan is not None:
@@ -756,6 +844,8 @@ def serve(options: ServeOptions, *, device="cuda", verbose: bool = False,
         else:
             engine = EngineLoop(cfg, params, **loop_kwargs)
             spec = None
+        _prime_curves(o.persist_curves, cfg, max_len, engine.batcher, device,
+                      say)
         _reprice_for_speculation(engine.batcher)
         engine.warmup()
         metrics = engine.run(requests, on_delta=on_delta)
@@ -804,6 +894,28 @@ def serve(options: ServeOptions, *, device="cuda", verbose: bool = False,
             + (" [disabled mid-run: priced worse at measured acceptance]"
                if spec.disabled_midrun else ""), flush=True)
 
+    # ---- watchdog + SLO reporting ----------------------------------------
+    watchdog_report = None
+    if watchdog is not None:
+        watchdog_report = rep = watchdog.report()
+        say(f"[serve] watchdog: {len(rep['alerts'])} drift alerts, "
+            f"{len(rep['reprices'])} re-price events, sync cadence "
+            f"{rep['sync_cadence']}", flush=True)
+        for a in rep["alerts"]:
+            say(f"[serve] watchdog.alert: {a['engine']}/{a['phase']} "
+                f"{a['direction']} ewma={a['ewma_ratio']:.2f} "
+                f"(priced {a['priced_step_s']*1e3:.2f}ms, observed "
+                f"{a['observed_step_s']*1e3:.2f}ms)", flush=True)
+        for r in rep["reprices"]:
+            say(f"[serve] watchdog.reprice: {r['engine']}/{r['phase']} "
+                f"pricing={r.get('pricing')} token_budget "
+                f"{r.get('token_budget_old')} -> {r.get('token_budget')}",
+                flush=True)
+        for b in batchers:
+            if b.n_reprices:
+                say(f"[serve] admission [{b.phase}] re-priced "
+                    f"{b.n_reprices}x ({b.price_source}); final budget "
+                    f"{b.token_budget}/{b.pool.n_slots}", flush=True)
     slo_rows = None
     if o.slo_report:
         slo_ttft_ms = (EFFECTIVE_DEFAULTS["slo_ttft_ms"]
@@ -821,15 +933,48 @@ def serve(options: ServeOptions, *, device="cuda", verbose: bool = False,
             f"unclosed) -> {path}", flush=True)
     if o.metrics_out:
         extra = {"summary": summary}
+        if watchdog is not None:
+            extra["watchdog"] = watchdog_report
         if spec_report is not None:
             extra["speculation"] = spec_report
         path = write_metrics(obs.registry, o.metrics_out,
                              tracer=obs.tracer if o.trace else None,
                              extra=extra)
         say(f"[serve] metrics snapshot -> {path}", flush=True)
+    if o.feed_cache:
+        from ..profiling.acceptance import record_acceptance
+        from ..profiling.cache import ProfileCache
+        cache_path = _feed_cache_path(options)
+        cache = ProfileCache.load(cache_path, strict=False, device=device)
+        n = obs.feedback.flush(cache)
+        if spec is not None and spec.n_proposed > 0:
+            # persist the measured acceptance so the next run's analyzer
+            # prices on data instead of the engagement prior
+            record_acceptance(cache, draft_arch=spec.plan.draft_name,
+                              target_arch=w.arch, k=spec.plan.k,
+                              n_proposed=spec.n_proposed,
+                              n_accepted=spec.n_accepted,
+                              n_rounds=spec.n_rounds)
+            say(f"[serve] acceptance {spec.plan.draft_name} -> {w.arch}: "
+                f"{spec.acceptance_rate:.3f} -> {cache_path}", flush=True)
+        cache.save(cache_path)
+        say(f"[serve] fed {n} telemetry measurements from "
+            f"{obs.feedback.n_bursts} bursts (batch sizes "
+            f"{obs.feedback.batches}) -> {cache_path}", flush=True)
+    if o.persist_curves:
+        # persist-curves exit leg: flush this run's burst telemetry so the
+        # next serve's _prime_curves finds a fresh curve
+        from ..profiling.cache import ProfileCache
+        cache = ProfileCache.load(o.persist_curves, strict=False,
+                                  device=device)
+        n = obs.feedback.flush(cache)
+        cache.save(o.persist_curves)
+        say(f"[serve] curves: persisted {n} telemetry measurements "
+            f"(batch sizes {obs.feedback.batches}) -> "
+            f"{o.persist_curves}", flush=True)
 
     return ServeReport(
         summary=summary, metrics=metrics, requests=list(requests),
         pool_stats=pool_stats, admission=admission, handoff=handoff_stats,
-        slo=slo_rows, placement=placement_report,
+        watchdog=watchdog_report, slo=slo_rows, placement=placement_report,
         decode_target=decode_target, speculation=spec_report)

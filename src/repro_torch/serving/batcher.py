@@ -22,8 +22,9 @@ order or the token budget.
 
 :meth:`ContinuousBatcher.reprice` installs another step-time function:
 speculative decoding re-prices admission when it engages and again when its
-acceptance veto turns it off.  The JAX package's performance watchdog
-re-prices through the same method; that watchdog is not ported yet.
+acceptance veto turns it off, and the performance watchdog
+(:class:`~repro_torch.obs.watchdog.PerfWatchdog`, through
+``EngineLoop.on_drift``) re-prices through the same method.
 """
 from __future__ import annotations
 

@@ -48,7 +48,9 @@ With a :class:`~repro_torch.serving.speculative.SpecPlan` the decode engine
 speculates (a draft engine beside it proposes, the decode engine verifies
 k+1 positions per round); prefill has no decode-phase slots.  Not here yet:
 the watchdog's mid-run re-placement with live migration of decode slots
-(ROADMAP §1 item 6), which speculation would pin anyway.
+(ROADMAP §1 item 6c), which speculation would pin anyway; ``serve()``
+refuses the watchdog, telemetry feedback and persisted curves on this loop
+for that reason.
 """
 from __future__ import annotations
 
@@ -288,8 +290,9 @@ class DisaggregatedEngineLoop:
 
     def on_drift(self, alert, watchdog) -> None:
         raise NotImplementedError(
-            "the watchdog's re-pricing and re-placement: not ported yet; "
-            "ROADMAP §1 item 6 (the rest of obs) ports it")
+            "the watchdog's re-pricing and re-placement on the "
+            "disaggregated loop: not ported yet; ROADMAP §1 item 6c "
+            "(re-placement and live migration) ports it")
 
     # ---- migration -------------------------------------------------------
     def _dispatch_handoff(self, req: Request) -> bool:

@@ -170,10 +170,16 @@ class TokenSink:
 
     def __init__(self, metrics: ServeMetrics,
                  on_delta: Optional[Callable[[StreamDelta], None]] = None,
-                 tracer=None):
+                 tracer=None, watchdog=None):
         self.metrics = metrics
         self.on_delta = on_delta
         self.tracer = tracer if tracer is not None else NullTracer()
+        self.watchdog = watchdog
+        # sync cadence: drain (device sync + delta emission) only every
+        # k-th boundary per engine.  1 = every boundary; the driver
+        # stretches it from the watchdog's sync-cost pressure
+        self.sync_every = 1
+        self._boundaries: Dict[str, int] = {}   # per-engine boundary count
 
     @property
     def streaming(self) -> bool:
@@ -183,10 +189,18 @@ class TokenSink:
         """Sync `engine`'s outputs at the burst boundary and emit deltas."""
         if self.on_delta is None:
             return                       # completion-pull: keep async chain
+        n = self._boundaries.get(engine.name, 0) + 1
+        self._boundaries[engine.name] = n
+        if n % max(self.sync_every, 1) != 0:
+            return                       # skipped boundary: tokens ride the
+            #                              next drain (or the finish() tail)
         h = (self.tracer.begin("sync", track=f"engine:{engine.name}",
                                cat="engine", args={"kind": "drain"})
              if self.tracer.enabled else None)
+        t0 = self.tracer.now() if self.watchdog is not None else 0.0
         rows = engine.pull_outputs()     # host sync: burst results land
+        if self.watchdog is not None:
+            self.watchdog.observe_sync(self.tracer.now() - t0)
         if h is not None:
             self.tracer.end(h)
         t = clock()                      # stamped AFTER materialization
@@ -271,8 +285,8 @@ class OpenLoopDriver:
     installs the derived skew clock into the tracer at run start, so every
     metric stamp and trace timestamp lives on one timeline and tests can
     drive the whole loop on a virtual clock (no hidden wall-time reads).
-    Scheduling decisions (admission order, burst sizes, throttles) affect
-    only timing: per-request greedy outputs depend on
+    Scheduling decisions (admission order, burst sizes, throttles,
+    re-prices) affect only timing: per-request greedy outputs depend on
     the prompt and the model alone, streamed deltas concatenate to exactly
     the completion-pull rows, and ``ttft_dispatch <= ttft`` holds for
     every request.
@@ -295,7 +309,8 @@ class OpenLoopDriver:
         loop = self.loop
         obs = self.obs
         metrics = ServeMetrics(registry=obs.registry)
-        sink = TokenSink(metrics, on_delta, tracer=obs.tracer)
+        sink = TokenSink(metrics, on_delta, tracer=obs.tracer,
+                         watchdog=obs.watchdog)
         pending = sorted(requests, key=lambda r: (r.arrival, r.rid))
         queue: List[Request] = []
         loop.start_run()
@@ -327,11 +342,27 @@ class OpenLoopDriver:
             metrics.n_steps += loop.dispatch(throttle, budget)
             loop.sample(metrics)
             loop.scan(clock, metrics, sink)
+            self._act_on_watchdog(sink)
             self._observe_iteration(metrics, queue, pending, clock())
             if max_steps is not None and metrics.n_steps >= max_steps:
                 break
         metrics.elapsed_s = clock()
         return metrics
+
+    def _act_on_watchdog(self, sink: TokenSink) -> None:
+        """Burst-boundary watchdog hook: hand pending drift alerts to the
+        loop's ``on_drift`` action leg (admission re-pricing) and apply the
+        current sync-cadence advice to the streaming sink.  All of it is
+        scheduling and pricing policy — per-request greedy outputs are
+        schedule-independent, so acting never changes them."""
+        wd = self.obs.watchdog
+        if wd is None:
+            return
+        on_drift = getattr(self.loop, "on_drift", None)
+        if on_drift is not None:
+            for alert in wd.pending_actions():
+                on_drift(alert, wd)
+        sink.sync_every = wd.sync_cadence()
 
     def _observe_iteration(self, metrics: ServeMetrics, queue: List[Request],
                            pending: List[Request], now: float) -> None:

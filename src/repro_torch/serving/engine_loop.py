@@ -720,14 +720,47 @@ class EngineLoop:
                            throttle=throttle, budget=budget)
         if burst <= 0:
             return 0
-        tracer = self.obs.tracer
+        tracer, fb, wd = self.obs.tracer, self.obs.feedback, self.obs.watchdog
+        n_active = eng.n_active
         h = (tracer.begin("burst", track=f"engine:{eng.name}", cat="engine",
-                          args={"steps": burst, "n_active": eng.n_active})
+                          args={"steps": burst, "n_active": n_active})
              if tracer.enabled else None)
+        timed = fb is not None or wd is not None
+        t0 = tracer.now() if timed else 0.0
         eng.dispatch(burst, eng.active)
+        if timed:
+            # telemetry feedback / the watchdog want the card's time per
+            # step, so wait for the burst (a pure wait: outputs stay
+            # bit-identical)
+            eng.sync()
+            dt = tracer.now() - t0
+            if fb is not None:
+                fb.observe_burst(n_active, burst, dt)
+            if wd is not None:
+                wd.observe_burst(
+                    eng.name, self.batcher.phase, n_tokens=n_active,
+                    steps=burst, elapsed_s=dt,
+                    priced_step_s=self.batcher.priced_step_s(n_active))
         if h is not None:
-            tracer.end(h)
+            tracer.end(h, args={"synced": timed})
         return burst
+
+    def on_drift(self, alert, watchdog) -> None:
+        """Watchdog action leg: re-price admission from observed telemetry.
+
+        Installs the best pricing the watchdog can offer — a fitted
+        latency(batch) curve once >= 2 batch sizes were observed, the
+        analytic shape scaled by the observed divergence ratio otherwise —
+        and refits the token budget against the stored step SLO.  Pure
+        admission policy: per-request greedy outputs are schedule-
+        independent, so re-pricing never changes what is generated.
+        """
+        fn, source = watchdog.step_time_fn(
+            alert.engine, alert.phase, self.batcher.analytic_step_s)
+        if source == "analytic":
+            return                       # nothing observed: keep the model
+        detail = self.batcher.reprice(fn, source=source)
+        watchdog.note_reprice(alert, detail)
 
     def sample(self, metrics: ServeMetrics) -> None:
         occ, util = sample_pools((self.pool,))

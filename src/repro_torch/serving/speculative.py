@@ -56,9 +56,10 @@ place, so the target engine's step graph replays on the same storage in the
 next plain burst.  ``cuda_graph=False``, and every CPU tensor, run the same
 code eagerly.  The draft's catch-up (:meth:`DraftEngine.sync_to`) stays
 eager: its length and start change per call.  A round makes one host pull
-(committed and accepted counts together), as in the JAX package.  The port's
-observability bundle has no telemetry feedback or performance watchdog yet
-(ROADMAP §1 item 6), so a round is never synced for timing.
+(committed and accepted counts together), as in the JAX package.  With
+telemetry feedback or the performance watchdog on, a round is synced and
+timed like a plain burst, its committed tokens per slot counted as
+fractional steps.
 """
 from __future__ import annotations
 
@@ -450,18 +451,20 @@ def spec_dispatch(spec: SpeculativeDecoder, eng, pool, batcher, obs, *,
                   mask: np.ndarray, pos: np.ndarray, rem: np.ndarray,
                   budget: Optional[int]) -> int:
     """One speculative round under the serving loops' dispatch contract
-    (burst span, pool write accounting, the veto's re-price).  Returns the
-    step count the round is credited with: the most committed tokens of
-    any of its slots."""
+    (burst span, synced feedback/watchdog observation, pool write
+    accounting, the veto's re-price).  Returns the step count the round is
+    credited with: the most committed tokens of any of its slots."""
     if budget is not None and budget <= 0:
         return 0
-    tracer = obs.tracer
+    tracer, fb, wd = obs.tracer, obs.feedback, obs.watchdog
     spec.sync_drafts(pos, mask)
     n_active = int(mask.sum())
     h = (tracer.begin("burst", track=f"engine:{eng.name}", cat="engine",
                       args={"steps": spec.plan.k + 1, "n_active": n_active,
                             "speculative": True})
          if tracer.enabled else None)
+    timed = fb is not None or wd is not None
+    t0 = tracer.now() if timed else 0.0
     c = spec.round(mask, rem)
     committed = int(c[mask].sum())
     eng.steps_done[mask] += c[mask]
@@ -469,8 +472,20 @@ def spec_dispatch(spec: SpeculativeDecoder, eng, pool, batcher, obs, *,
         req = eng.slots[s]
         if req is not None and c[s] > 0:
             pool.note_write(req.rid, int(c[s]))
+    if timed:
+        eng.sync()
+        dt = tracer.now() - t0
+        # per-slot committed tokens this round, as fractional "steps": the
+        # watchdog/feedback contract is wall time per step per token
+        steps = committed / max(n_active, 1)
+        if fb is not None:
+            fb.observe_burst(n_active, steps, dt)
+        if wd is not None:
+            wd.observe_burst(eng.name, batcher.phase, n_tokens=n_active,
+                             steps=steps, elapsed_s=dt,
+                             priced_step_s=batcher.priced_step_s(n_active))
     if h is not None:
-        tracer.end(h, args={"synced": False, "committed": committed})
+        tracer.end(h, args={"synced": timed, "committed": committed})
     if spec.take_veto():
         # measured acceptance re-priced speculation worse than plain
         # decode: admission returns to the analytic plain-step model

@@ -304,6 +304,10 @@ def test_flash_tiles_match_the_kernel():
         == flash_attention.PAD
     assert "kSmem = 5 * (size_t)kBytes + 9 * 8 + 1024" in text
     assert "kBytes = 64 * D * 2" in text
+    # the C entry point instantiates exactly the wrapper's head dims
+    cases = re.findall(r"case (\d+):\s*return run<(\d+)>", text)
+    assert [int(c) for c, _ in cases] == list(flash_attention.HEAD_DIMS)
+    assert all(c == d for c, d in cases)
     for d in flash_attention.HEAD_DIMS:
         for elem in (2, 4):
             assert 0 < flash_attention.smem_bytes(d, elem) <= SMEM_PER_BLOCK

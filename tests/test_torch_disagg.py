@@ -213,7 +213,8 @@ def test_unported_parts_raise_with_their_roadmap_item(weights):
     recurrent layers and cross-attention (item 7), which are ported too, so
     a hybrid config and a gated cross-attention config now build (the
     latter with a cross row per slot on both engines), and only the drift
-    hook is refused (item 6)."""
+    hook is refused: ROADMAP §1 item 6c now, the disaggregated third of the
+    item 6 the match names (its colocated parts, 6a and 6b, are ported)."""
     plan = SpecPlan(draft_cfg=PCFG, draft_params=weights[1], k=2)
     spec = DisaggregatedEngineLoop(PCFG, weights[1], n_prefill_slots=1,
                                    n_decode_slots=1, max_seq=8, plan=plan,

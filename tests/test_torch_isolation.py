@@ -50,7 +50,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                  "profiling.cache", "profiling.bench", "profiling.calibrate",
                  "profiling.pricer", "launch.profile", "launch.serve",
                  "serving.api", "configs.registry", "obs.export",
-                 "obs.watchdog", "models.moe", "models.ssm",
+                 "obs.watchdog", "obs.curves", "obs.feedback",
+                 "models.moe", "models.ssm",
                  "configs.phi35_moe", "configs.mixtral_8x7b",
                  "configs.falcon_mamba_7b", "configs.recurrentgemma_2b",
                  "configs.deepseek_coder_33b", "configs.granite_34b",

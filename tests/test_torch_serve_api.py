@@ -7,7 +7,9 @@
   tests/test_api.py's cases, copied, and a few hundred random option sets
   run through both.  Valid options whose modules are not ported raise
   ``NotImplementedError`` in ``serve``, naming their ROADMAP item; the
-  placement options (item 4) and ``--speculate`` (item 5), ported, serve.
+  placement options (item 4), ``--speculate`` (item 5) and the watchdog,
+  telemetry feedback and persisted curves (item 6, on the colocated loop),
+  ported, serve.
 * ``serve(..., device="cpu")`` at float32 with the same weights gives the
   JAX package's ``serve()`` tokens, continuous (paged and dense) and static;
   its ``--trace`` output passes benchmarks/check_regression.py's gate, and
@@ -236,20 +238,27 @@ def test_validate_decides_as_the_reference_on_random_options():
 def test_unported_options_raise_with_their_roadmap_item(overrides, item,
                                                        tmp_path, monkeypatch):
     """Options whose modules are not ported raise, naming their ROADMAP
-    item.  The name is historical for the ``item 4`` and ``item 5`` cases:
-    placement, disaggregation and speculative decoding are ported, so those
+    item.  The name is historical for the ``item 4``, ``item 5`` and
+    ``item 6`` cases: placement, disaggregation, speculative decoding, the
+    watchdog, telemetry feedback and persisted curves are ported, so those
     options now serve every request, with the colocated run's tokens
-    (neither placement nor speculation changes a token; ``--speculate``
-    alone prices the default self-draft worse than plain decode and serves
-    plain)."""
+    (neither placement, speculation nor re-pricing changes a token;
+    ``--speculate`` alone prices the default self-draft worse than plain
+    decode and serves plain).  The ``item 6`` options serve on the
+    colocated loop only: with ``--placement disagg`` they still raise,
+    naming item 6c (re-placement and live migration on that loop)."""
     options = _opts(papi, **overrides)
     options.validate()                       # valid, as in the JAX package
-    if item not in ("item 4", "item 5"):
+    if item not in ("item 4", "item 5", "item 6"):
         with pytest.raises(NotImplementedError, match=item):
             papi.serve(options, device="cpu")
         return
-    monkeypatch.chdir(tmp_path)              # --measure-link-bw's cache
+    monkeypatch.chdir(tmp_path)              # the caches these options write
     small = dict(requests=4, prompt_len=8, gen_len=8, rate=1e9, slots=3)
+    if item == "item 6":
+        with pytest.raises(NotImplementedError, match="item 6c"):
+            papi.serve(_opts(papi, **small, **overrides, placement="disagg"),
+                       device="cpu")
     report = papi.serve(_opts(papi, **small, **overrides), device="cpu")
     colocated = papi.serve(_opts(papi, **small), device="cpu")
     assert report.summary["requests_done"] == small["requests"]
@@ -264,6 +273,13 @@ def test_unported_options_raise_with_their_roadmap_item(overrides, item,
     if overrides.get("speculate"):
         assert report.speculation["priced_fallback"] is True
         assert colocated.speculation is None
+    if overrides.get("watchdog"):
+        assert report.watchdog["config"]["drift_gate"] == 1.5
+        assert colocated.watchdog is None
+    if "feed_cache" in overrides:
+        assert (tmp_path / "build" / "profile_cache_torch.json").exists()
+    if "persist_curves" in overrides:
+        assert (tmp_path / overrides["persist_curves"]).exists()
 
 
 def test_serve_defaults_to_the_card(monkeypatch):
@@ -419,16 +435,23 @@ def test_cli_serves_on_the_cpu_and_exits_on_bad_options(float32_smoke,
     with pytest.raises(SystemExit) as exc:
         pserve_cli.main(["--device", "cpu", "--shared-frac", "0.5"])
     assert exc.value.code == 2
-    # --speculate is ported: it serves (here priced worse than plain
-    # decode, so plain); an unported flag exits naming its ROADMAP item
+    # --speculate and --watchdog are ported: they serve (--speculate here
+    # priced worse than plain decode, so plain); an unported flag exits
+    # naming its ROADMAP item: --watchdog on the disaggregated loop
     pserve_cli.main(["--device", "cpu", "--speculate", "--requests", "2",
                      "--prompt-len", "4", "--gen-len", "4", "--rate", "1e9",
                      "--slots", "2"])
     out = capsys.readouterr().out
     assert "requests_done: 2" in out
     assert "[serve] speculation: prices worse than plain decode" in out
-    with pytest.raises(SystemExit, match="item 6"):
-        pserve_cli.main(["--device", "cpu", "--watchdog"])
+    pserve_cli.main(["--device", "cpu", "--watchdog", "--requests", "2",
+                     "--prompt-len", "4", "--gen-len", "4", "--rate", "1e9",
+                     "--slots", "2"])
+    out = capsys.readouterr().out
+    assert "requests_done: 2" in out and "[serve] watchdog: " in out
+    with pytest.raises(SystemExit, match="item 6c"):
+        pserve_cli.main(["--device", "cpu", "--watchdog", "--placement",
+                         "disagg"])
 
 
 # ---------------------------------------------------------------------
