@@ -366,6 +366,15 @@ PHI_LAYERS, PHI_HEADS = 8, (32, 8)
 RG_HEADS, RG_WINDOW = (10, 1), 2048
 # phase 14: the step SLO the mispriced run's admission is held to
 OBS_STEP_SLO_MS = 50.0
+# phase 15: requests of the serve workload's generator (its first 8 are
+# phase 8's): 8 alone give the decode stream 6 bursts, 3 of them counted
+# after the watchdog's first-visit skips, under its warm-up of 4, so it
+# never alerts; behind 8 more the bursts stay short while they queue.  The
+# decode phase's price is scaled by MIGRATION_MISPRICE
+MIGRATION_REQUESTS, MIGRATION_MISPRICE = 16, 1e-6
+# phase 15: the watched leg of the sync-cost pair gates drift at a ratio no
+# stream reaches, so its bursts are synced and observed and nothing acts
+SYNC_DRIFT_GATE = 1e9
 # phase 12: the train CLI's defaults (batch 8 x seq 128), 10 steps timed;
 # the flash backward at qwen2's (query, kv) heads over key chunks of 128,
 # and unmasked against TRAIN_CROSS_T keys (a short last chunk)
@@ -2647,6 +2656,202 @@ def phase_obs(torch, kern, cfg, params, plain_outputs, smi: str):
     return total, prefill
 
 
+def phase_migration(torch, kern, cfg, params, plain_outputs, smi: str):
+    """15. The watchdog on the disaggregated loop through serve() on the
+    full-width model, on the paged kernel, prefill and decode slot engines
+    of SLOTS each: the decode phase priced on k40-roofline at 1e-6 of its
+    cost (--misprice-phase decode), so its stream alerts and re-placement
+    over the hosted pair moves decode onto the torch engine, live-migrating
+    in-flight slots (replayed there by that engine's graph); the same run
+    on one engine (advice only), two feed-cache/persist-curves runs (the
+    second primed) and a speculating run (pinned).  Phase 8's 8 requests
+    alone give the decode stream too few bursts to alert (the watchdog's
+    warm-up, MIGRATION_REQUESTS), so every leg serves MIGRATION_REQUESTS of
+    the same generator: the first 8 are phase 8's, and each leg's tokens
+    are held to the colocated run of them all, whose first 8 are held to
+    phase 8's.  tok/s with and without the watchdog in turns, the watched
+    leg under a drift gate nothing reaches (SYNC_DRIFT_GATE).  Returns the
+    launches by kernel of the serve() runs."""
+    from repro_torch.serving import api
+
+    n_req = MIGRATION_REQUESTS
+    n_entry = SERVE_ENTRY["requests"]
+    total = {name: 0 for name in kern}
+    trace = ROOT / "build" / "migration_trace.json"
+    path = ROOT / "build" / "migration_curves_cache.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    disagg = dict(placement="disagg", prefill_engine="torch",
+                  decode_engine="k40-roofline", prefill_slots=SLOTS,
+                  requests=n_req)
+    mispriced = dict(watchdog=True, misprice=MIGRATION_MISPRICE,
+                     misprice_phase="decode")
+    build = api.build_params
+    api.build_params = lambda c, device: params
+
+    def run(tag, want=None, **fields):
+        for fn in kern.values():
+            fn.launches = 0
+        report = api.serve(serve_options(api, **fields))
+        torch.cuda.synchronize()
+        for name, fn in kern.items():
+            total[name] += fn.launches
+        done = report.summary["requests_done"]
+        dropped = report.summary["requests_dropped"]
+        line = (f"[migration] {tag}: requests_done={done} dropped={dropped} "
+                f"tok/s={report.summary['tok_per_s']:.1f} paged launches="
+                f"{kern['paged_attention'].launches}")
+        if want is not None:
+            same = report.outputs == want
+            line += (f"; tokens bitwise equal to the colocated run's: "
+                     f"{same}")
+        print(line, flush=True)
+        check(done == fields.get("requests", n_entry) and dropped == 0,
+              f"{tag}: {done} done, {dropped} dropped")
+        check(kern["paged_attention"].launches > 0,
+              f"{tag}: the paged kernel was not launched")
+        if want is not None:
+            check(same, f"{tag}: tokens differ from the colocated run's")
+        return report
+
+    def reprices(report) -> str:
+        """Each re-price: its phase, pricing, advised decode engine and
+        what was actuated (or why not)."""
+        out = []
+        for r in report.watchdog["reprices"]:
+            advice = r.get("placement_advice") or {}
+            acted = (f"-> {r['decode_target']} ({r['live_migrations']} "
+                     f"moved)" if r.get("actuated")
+                     else r.get("reason") or r.get("placement_error")
+                     or "kept")
+            out.append(f"{r['phase']}/{r['pricing']} advice "
+                       f"{advice.get('decode_engine')}: {acted}")
+        return "[" + "; ".join(out) + "]"
+
+    try:
+        run("first call", **dict(disagg, requests=1, gen_len=2))
+        colocated = run("colocated", requests=n_req)
+        want = colocated.outputs
+        entry_same = {rid: want[rid] for rid in plain_outputs} == plain_outputs
+        print(f"[migration] the colocated run's first {n_entry} requests "
+              f"bitwise equal to phase 8's graph run: {entry_same}",
+              flush=True)
+        check(entry_same, "the colocated run's first requests differ from "
+              "phase 8's")
+
+        # 1. actuated: the decode stream alerts, decode moves onto the
+        # torch engine and in-flight slots live-migrate
+        act = run("actuated", want, **disagg, **mispriced, trace=str(trace))
+        alerts = act.watchdog["alerts"]
+        moves = [e["args"] for e in json.loads(trace.read_text())[
+                     "traceEvents"]
+                 if e.get("name") == "handoff" and e.get("args", {}).get(
+                     "kind") == "live-migration"]
+        hand = act.handoff
+        print(f"[migration] actuated: {len(alerts)} alerts ("
+              + ", ".join(f"{a['phase']} {a['direction']} ewma="
+                          f"{a['ewma_ratio']:.3e} at batch {a['batch']}"
+                          for a in alerts)
+              + f"); re-prices {reprices(act)}; final decode target "
+              f"{act.decode_target}", flush=True)
+        print(f"[migration] live migrations: {hand['n_live_migrations']} ("
+              + ", ".join(f"{m['from']}->{m['to']} remaining "
+                          f"{m['remaining_steps']} bytes {m['bytes']} "
+                          f"stall_s {m['stall_s']:.6f}" for m in moves)
+              + f"); all hand-offs {hand['n_handoffs']} x "
+              f"{hand['bytes_moved'] / hand['n_handoffs']:.0f} B (mean), "
+              f"stall_s={hand['stall_s']:.6f} ({smi})", flush=True)
+        check(any(a["phase"] == "decode" for a in alerts),
+              f"actuated: no alert on the decode stream {alerts}")
+        check(any(r["actuated"] is True and r["decode_target"] == "prefill"
+                  for r in act.watchdog["reprices"]),
+              f"actuated: no re-price moved decode onto the prefill engine "
+              f"{reprices(act)}")
+        check(hand["n_live_migrations"] >= 1
+              and len(moves) == hand["n_live_migrations"]
+              and all(m["remaining_steps"] > 0 for m in moves),
+              f"actuated: live migrations {hand['n_live_migrations']}, "
+              f"spans {moves}")
+
+        # 2. one engine for both phases: the decision stays advice
+        advice = run("advice only", want, **dict(disagg,
+                                                 decode_engine="torch"),
+                     **mispriced)
+        reps = advice.watchdog["reprices"]
+        print(f"[migration] advice only: re-prices {reprices(advice)}; "
+              f"decode target {advice.decode_target}", flush=True)
+        check(reps and all(r.get("actuated") is False and r.get("reason")
+                           == "single-engine placement" for r in reps),
+              f"advice only: re-prices {reprices(advice)}")
+        check(advice.decode_target == "decode"
+              and advice.handoff["n_live_migrations"] == 0,
+              f"advice only: decode target {advice.decode_target}, "
+              f"{advice.handoff['n_live_migrations']} live migrations")
+
+        # 3. decode-burst telemetry into the profile cache, then a run
+        # whose decode batcher is primed from its curve
+        path.unlink(missing_ok=True)
+        curves = [run(f"curves run {i + 1}", want, **disagg,
+                      feed_cache=str(path), persist_curves=str(path))
+                  for i in range(2)]
+        sources = [[a["price_source"] for a in c.admission] for c in curves]
+        print(f"[migration] curves: price sources (prefill, decode) of run "
+              f"1 {sources[0]}, run 2 {sources[1]}", flush=True)
+        check(sources == [["analytic", "analytic"],
+                          ["analytic", "cache-curve"]],
+              f"curves: price sources {sources}; expected run 2's decode "
+              f"batcher primed from run 1's curve")
+
+        # 4. speculation pins the decode engine: advice only
+        spec = run("speculating k 2, mispriced", want, **disagg,
+                   **mispriced, speculate=True, draft_k=2)
+        reps = spec.watchdog["reprices"]
+        print(f"[migration] speculating: {spec.speculation['n_rounds']} "
+              f"rounds; re-prices {reprices(spec)}", flush=True)
+        check(reps and all(
+            r.get("actuated") is False and r.get("reason")
+            == "speculative decoding pins the decode engine" for r in reps),
+            f"speculating: re-prices {reprices(spec)}")
+        check(spec.decode_target == "decode"
+              and spec.handoff["n_live_migrations"] == 0,
+              "speculating: the decode engine moved")
+
+        # tok/s of the disaggregated loop with and without the watchdog,
+        # in turns.  The watched leg's drift gate is one no stream reaches
+        # (SYNC_DRIFT_GATE): every burst on both engines is synced and
+        # observed, and nothing alerts, re-prices or migrates, so both legs
+        # run the same schedule and differ only by the syncs
+        rows = {"disagg": [], "disagg watchdog": []}
+        for _ in range(3):
+            plain = run("disagg", want, **disagg)
+            plain_launches = kern["paged_attention"].launches
+            rows["disagg"].append(plain.summary["tok_per_s"])
+            watched = run("disagg watchdog", want, **disagg, watchdog=True,
+                          drift_gate=SYNC_DRIFT_GATE)
+            rows["disagg watchdog"].append(watched.summary["tok_per_s"])
+            did = (len(watched.watchdog["alerts"]),
+                   len(watched.watchdog["reprices"]),
+                   watched.handoff["n_live_migrations"])
+            print(f"[migration] disagg watchdog (drift gate "
+                  f"{SYNC_DRIFT_GATE:g}): alerts {did[0]}, re-prices "
+                  f"{did[1]}, live migrations {did[2]}; paged launches "
+                  f"{kern['paged_attention'].launches} against "
+                  f"{plain_launches} unwatched", flush=True)
+            check(did == (0, 0, 0) and watched.decode_target == "decode",
+                  f"disagg watchdog: the watched run acted (alerts, "
+                  f"re-prices, live migrations) {did}")
+            check(kern["paged_attention"].launches == plain_launches,
+                  f"disagg watchdog: {kern['paged_attention'].launches} "
+                  f"paged launches against {plain_launches} unwatched")
+    finally:
+        api.build_params = build
+    for name, vals in rows.items():
+        print(f"[migration] {name}: tok/s={statistics.median(vals):.1f} "
+              f"(runs {', '.join(f'{v:.1f}' for v in vals)}) ({smi})",
+              flush=True)
+    print(f"[migration] launches of the serve() runs {total}", flush=True)
+    return total
+
+
 def _free(torch) -> None:
     import gc
     gc.collect()
@@ -3559,6 +3764,9 @@ def main() -> None:
     # 14. the watchdog, curves and telemetry feedback (on these weights)
     obs_launches, obs_prefill_launches = phase_obs(torch, kern, QWEN2,
                                                    params, entry_outputs, smi)
+    # 15. the watchdog's re-placement and live migration, disaggregated
+    migration_launches = phase_migration(torch, kern, QWEN2, params,
+                                         entry_outputs, smi)
     del params
     # 11. the MoE and recurrent families
     family_launches = phase_families(torch, kern, smi)
@@ -3572,7 +3780,7 @@ def main() -> None:
                 "placement": placement_launches,
                 "speculation": spec_launches, "families": family_launches,
                 "train": train_launches, "cross": cross_launches,
-                "obs": obs_launches,
+                "obs": obs_launches, "migration": migration_launches,
                 "served_prompts_prefill": obs_prefill_launches}
     home = {"flash_attention": "prefill", "paged_attention": "serve_entry"}
 

@@ -24,11 +24,14 @@ table.  ``--placement disagg`` serves on a prefill and a decode slot engine
 and engages it where it wins (``--draft-k K`` forces depth K, ``--draft-arch``
 names the draft), colocated or disaggregated; it prints the
 ``[serve] speculation: ...`` lines.  ``--watchdog`` (``--misprice F`` injects
-a pricing error it must correct), ``--feed-cache`` and ``--persist-curves``
-serve on the colocated loop and print the ``[serve] watchdog`` and
-``[serve] curves`` lines.  Flags whose modules are not ported yet (those
-three on the disaggregated loop, the production meshes) exit with the
-ROADMAP item that ports them.
+a pricing error it must correct, ``--misprice-phase`` scopes it to one
+phase), ``--feed-cache`` and ``--persist-curves`` serve colocated or
+disaggregated and print the ``[serve] watchdog`` and ``[serve] curves``
+lines; disaggregated over two distinct engines, a drift alert can move the
+decode phase onto the other engine and live-migrate its slots (the
+``handoff.n_live_migrations`` and ``decode target`` lines).  Flags whose
+modules are not ported yet (the production meshes) exit with the ROADMAP
+item that ports them.
 """
 from __future__ import annotations
 

@@ -50,14 +50,17 @@ Observability rides it too: ``--trace``, ``--metrics-out`` and
 drifts from the price; ``--feed-cache`` flushes the run's burst timings
 (and a speculating run's measured acceptance) into the profile cache, and
 ``--persist-curves`` primes the next run's pricing from the latency curve
-fitted to them.  These three time every burst with a sync, and serve on the
-colocated loop (speculating or not).
+fitted to them.  These three time every burst with a sync, colocated or
+disaggregated, speculating or not.  On the disaggregated loop a drift alert
+also re-runs phase placement with the drifted device de-rated; with
+distinct prefill and decode engines the decision actuates, moving the
+decode phase onto the other engine and live-migrating in-flight slots
+(``--misprice-phase`` scopes the injected error to one phase's device
+model).
 
 Options whose modules are not ported yet pass ``validate()`` as they do in
 the JAX package and then raise ``NotImplementedError`` in ``serve``, naming
-the ROADMAP item that ports them: the watchdog, telemetry feedback and
-curves on the disaggregated loop, whose re-placement and live migration
-are not ported (§1 item 6c), and the production meshes (item 9).
+the ROADMAP item that ports them: the production meshes (§1 item 9).
 """
 from __future__ import annotations
 
@@ -314,28 +317,14 @@ class ServeOptions:
         return self
 
 
-def refuse_unported(options: ServeOptions, *,
-                    disagg: Optional[bool] = None) -> None:
+def refuse_unported(options: ServeOptions) -> None:
     """Raise NotImplementedError for a valid option whose module the port
-    does not have yet, naming the ROADMAP §1 item that ports it.
-    ``disagg`` says whether the disaggregated loop runs; None takes it from
-    the options alone (``--placement disagg``), before ``auto`` has
-    chosen."""
-    e, o = options.engine, options.observability
-    if disagg is None:
-        disagg = options.placement.placement == "disagg"
-    unported = (
-        (e.mesh != "host", f"--mesh {e.mesh}", "item 9 (sharding)"),
-        (disagg and bool(o.watchdog or o.feed_cache or o.persist_curves),
-         "--watchdog, --feed-cache and --persist-curves on the "
-         "disaggregated loop",
-         "item 6c (re-placement and live migration on the disaggregated "
-         "loop)"),
-    )
-    for asked, flags, item in unported:
-        if asked:
-            raise NotImplementedError(
-                f"{flags}: not ported yet; ROADMAP §1 {item} ports it")
+    does not have yet, naming the ROADMAP §1 item that ports it."""
+    mesh = options.engine.mesh
+    if mesh != "host":
+        raise NotImplementedError(
+            f"--mesh {mesh}: not ported yet; ROADMAP §1 item 9 (sharding) "
+            f"ports it")
 
 
 # ---------------------------------------------------------------------------
@@ -780,11 +769,18 @@ def serve(options: ServeOptions, *, device="cuda", verbose: bool = False,
                   if o.feed_cache or o.persist_curves else None),
         watchdog=watchdog)
 
-    def _misprice(dev):
-        """Inject an admission-pricing error for watchdog runs: the
-        device model scaled by --misprice (on the colocated loop, both
-        phases are the one batcher's)."""
+    misprice_phase = o.misprice_phase or EFFECTIVE_DEFAULTS["misprice_phase"]
+
+    def _misprice(dev, phase=None):
+        """Inject an admission-pricing error for watchdog runs: the device
+        model scaled by --misprice.  ``--misprice-phase`` scopes it to one
+        phase's device model on the disaggregated loop, so exactly that
+        stream drifts (the trigger of placement actuation); on the colocated
+        loop (``phase`` None) both phases are the one batcher's."""
         if o.misprice is None:
+            return dev
+        if (phase is not None and misprice_phase != "both"
+                and misprice_phase != phase):
             return dev
         from ..core import device_models
         if dev is None:
@@ -795,7 +791,6 @@ def serve(options: ServeOptions, *, device="cuda", verbose: bool = False,
     # (same-engine disagg measures the bare phase-boundary overhead)
     if pre_eng is not None and (pl.placement == "disagg"
                                 or pre_eng.name != dec_eng.name):
-        refuse_unported(options, disagg=True)
         engine = DisaggregatedEngineLoop(
             cfg, params,
             n_prefill_slots=pl.prefill_slots or e.slots,
@@ -803,14 +798,18 @@ def serve(options: ServeOptions, *, device="cuda", verbose: bool = False,
             kv_layout=kv_layout,
             decode_total_blocks=e.total_blocks,
             prefix_sharing=e.prefix_sharing,
-            prefill_device=_phase_device(pre_eng),
-            decode_device=_phase_device(dec_eng),
+            prefill_device=_misprice(_phase_device(pre_eng), "prefill"),
+            decode_device=_misprice(_phase_device(dec_eng), "decode"),
             step_slo_s=step_slo_s, obs=obs,
             handoff_link_bw=handoff_link_bw,
+            prefill_placement_engine_name=pre_eng.name,
+            decode_placement_engine_name=dec_eng.name,
             assignment=assignment,
             async_handoff=not pl.sync_handoff, plan=spec_plan,
             device=device, cuda_graph=cuda_graph)
         spec = engine.spec
+        _prime_curves(o.persist_curves, cfg, max_len, engine.decode_batcher,
+                      device, say)
         _reprice_for_speculation(engine.decode_batcher)
         engine.warmup()
         metrics = engine.run(requests, on_delta=on_delta)

@@ -44,13 +44,23 @@ Per-request outputs equal the colocated
 :class:`~repro_torch.serving.engine_loop.EngineLoop`'s: the migrated
 snapshot is exact and the per-slot step math is engine-independent.
 
+The watchdog's placement advice can also **actuate** here: when the two
+phases price on distinct placement engines, a drift alert re-runs
+``place_phases`` with the drifted device de-rated, and if the fresh decision
+moves the decode phase onto the *other* hosted engine the loop switches its
+decode target mid-run.  In-flight decode slots then live-migrate through the
+same export/adopt machinery (as far as the destination's budget and pool
+allow; the rest finish where they are), and later phase boundaries flip in
+place instead of handing off.  A migrated slot lands in the destination's
+buffers in place, so on a card that engine's captured graph steps it.  All
+of it is scheduling: the per-slot step math is engine-independent, so the
+tokens do not change.
+
 With a :class:`~repro_torch.serving.speculative.SpecPlan` the decode engine
 speculates (a draft engine beside it proposes, the decode engine verifies
-k+1 positions per round); prefill has no decode-phase slots.  Not here yet:
-the watchdog's mid-run re-placement with live migration of decode slots
-(ROADMAP §1 item 6c), which speculation would pin anyway; ``serve()``
-refuses the watchdog, telemetry feedback and persisted curves on this loop
-for that reason.
+k+1 positions per round); prefill has no decode-phase slots.  The draft's
+cache is pinned to the decode engine, so while speculating the placement
+decision stays advice.
 """
 from __future__ import annotations
 
@@ -62,6 +72,7 @@ import torch
 
 from ..core import device_models
 from ..core.cost_model import transfer_cost
+from ..core.engines import ENGINES_BY_NAME, TORCH_ENGINE
 from ..launch.mesh import DeviceAssignment
 from ..models import transformer as T
 from ..obs import MetricsRegistry, Observability, default_clock
@@ -73,6 +84,7 @@ from .engine_loop import (SlotEngine, check_prefix_sharing, snapshot_ready,
                           trace_completion, trace_phase_flip,
                           wire_pool_events)
 from .kv_pool import KVPool
+from .placement import drift_scaled_device, place_phases
 from .request import Request, RequestState
 from .speculative import SpecPlan, SpeculativeDecoder, spec_dispatch
 
@@ -90,8 +102,9 @@ class HandoffLedger:
     occupancy and queue depth.  ``stall_s`` sums the time adoptions
     blocked waiting on an unfinished copy, ``overlap_s`` the
     dispatch-to-adoption windows the copies had to hide in.
-    ``n_live_migrations`` counts hand-offs of in-flight decode slots,
-    which the watchdog's placement actuation makes (not ported yet: 0).
+    ``n_live_migrations`` counts hand-offs of in-flight decode slots
+    between engines (the watchdog's placement actuation) rather than at a
+    phase boundary.
     """
 
     def __init__(self, registry: Optional[MetricsRegistry] = None):
@@ -184,7 +197,11 @@ class DisaggregatedEngineLoop:
     passes carries slots onto the decode engine.  ``device`` defaults to
     the card (each engine's steps replay its own CUDA graph there unless
     ``cuda_graph=False``); ``assignment`` places each phase instead.
-    ``plan`` runs speculative decoding on the decode engine.
+    ``plan`` runs speculative decoding on the decode engine.  The
+    placement engine names say which engines of
+    :data:`~repro_torch.core.engines.ENGINES_BY_NAME` the two phases run
+    as: with the same name for both, the watchdog's re-placement stays
+    advice; with distinct ones it actuates (:meth:`_actuate_placement`).
     """
 
     def __init__(self, cfg: T.ModelConfig, params, *, n_prefill_slots: int,
@@ -198,6 +215,8 @@ class DisaggregatedEngineLoop:
                  decode_device: Optional[device_models.DeviceModel] = None,
                  step_slo_s: Optional[float] = None,
                  handoff_link_bw: Optional[float] = None,
+                 prefill_placement_engine_name: str = TORCH_ENGINE.name,
+                 decode_placement_engine_name: str = TORCH_ENGINE.name,
                  assignment: Optional[DeviceAssignment] = None,
                  async_handoff: bool = True,
                  prefix_sharing: bool = False,
@@ -258,12 +277,25 @@ class DisaggregatedEngineLoop:
                                         propose_override=propose_override,
                                         target_params=params)
                      if plan is not None else None)
+        # the placement engines the two slot engines run as; the watchdog's
+        # mid-run re-placement de-rates the drifted phase's.  With one
+        # shared name the decision stays advice, with distinct names it
+        # actuates (_actuate_placement)
+        self._prefill_placement_name = prefill_placement_engine_name
+        self._decode_placement_name = decode_placement_engine_name
         self._async_handoff = async_handoff
+        # which hosted engine serves the decode phase now: "decode" (hand-off
+        # at the boundary) or "prefill" (flip in place); placement actuation
+        # switches it mid-run
+        self._decode_target = "decode"
         self.handoff = HandoffLedger(registry=self.obs.registry)
         # prefill-complete requests awaiting migration (reset per run)
         self._ready: List[Request] = []
         # dispatched hand-offs whose copy may still be running
         self._pending: List[_PendingHandoff] = []
+        # rid -> n_fed at a live migration's export: steps_done restarts at 0
+        # on the adopting engine, so fed accounting resumes from this base
+        self._fed_base: Dict[int, int] = {}
 
     def warmup(self) -> None:
         self.prefill.warmup()
@@ -284,15 +316,8 @@ class DisaggregatedEngineLoop:
 
     @property
     def decode_target(self) -> str:
-        """Which hosted engine serves the decode phase: always "decode"
-        until the watchdog's placement actuation is ported."""
-        return "decode"
-
-    def on_drift(self, alert, watchdog) -> None:
-        raise NotImplementedError(
-            "the watchdog's re-pricing and re-placement on the "
-            "disaggregated loop: not ported yet; ROADMAP §1 item 6c "
-            "(re-placement and live migration) ports it")
+        """Which hosted engine serves the decode phase now."""
+        return self._decode_target
 
     # ---- migration -------------------------------------------------------
     def _dispatch_handoff(self, req: Request) -> bool:
@@ -380,16 +405,90 @@ class DisaggregatedEngineLoop:
                                       "overlap_s": overlap,
                                       "async": self._async_handoff})
 
-    def _drain_handoffs(self) -> None:
+    def _drain_handoffs(self, *, force_all: bool = False) -> None:
         """Adopt dispatched hand-offs, oldest first: every one whose copy
         has finished, plus (blocking) while the pipeline is over the
-        double-buffer bound or the decode engine sits idle."""
+        double-buffer bound, the decode engine sits idle, or the caller
+        forces a full drain."""
         while self._pending:
-            must = (len(self._pending) > MAX_PENDING_HANDOFFS
+            must = (force_all or len(self._pending) > MAX_PENDING_HANDOFFS
                     or self.decode.n_active == 0)
             if not must and not snapshot_ready(self._pending[0].state):
                 break
             self._adopt(self._pending.pop(0))
+
+    def _live_migrate(self, target: str) -> int:
+        """Move in-flight DECODE slots onto the ``target`` engine through
+        the export/adopt machinery of the phase boundary, synchronously, so
+        each request resumes at once.  Slots the destination cannot take
+        (budget or pool) finish where they are.  Returns the number of
+        slots moved."""
+        src = self.decode if target == "prefill" else self.prefill
+        dst = self.prefill if target == "prefill" else self.decode
+        dst_batcher = (self.prefill_batcher if target == "prefill"
+                       else self.decode_batcher)
+        src_dev = (self._decode_dev if target == "prefill"
+                   else self._prefill_dev)
+        dst_dev = (self._prefill_dev if target == "prefill"
+                   else self._decode_dev)
+        skip_rids = ({r.rid for r in self._ready}
+                     | {ph.req.rid for ph in self._pending})
+        tracer = self.obs.tracer
+        moved = 0
+        for s, req in enumerate(list(src.slots)):
+            if (req is None or req.state is not RequestState.DECODE
+                    or req.rid in skip_rids):
+                continue
+            remaining = int(src.steps_total[s] - src.steps_done[s])
+            if remaining <= 0:
+                continue                 # completes where it is
+            if dst.n_active >= dst_batcher.token_budget:
+                continue                 # budget-limited: finish in place
+            prompt = req.prompt if dst.pool.prefix_sharing else None
+            if not dst.pool.can_admit(req.total_tokens, prompt):
+                continue                 # pool-limited: finish in place
+            h = (tracer.begin("handoff", track="requests", tid=req.rid,
+                              cat="request")
+                 if tracer.enabled else None)
+            # fed accounting resumes from the steps already run here
+            base = self._fed_base.get(req.rid)
+            if src is self.decode:
+                fed_base = ((req.prompt_len if base is None else base)
+                            + int(src.steps_done[s]))
+            else:
+                fed_base = ((req.shared_tokens if base is None else base)
+                            + int(src.steps_done[s]))
+            state = src.export_slot(s)
+            written = src.pool.lease(req.rid).written_tokens
+            src.release(req)
+            req.slot = dst.pool.alloc(req.rid, req.total_tokens,
+                                      prompt=prompt)
+            dst_lease = dst.pool.lease(req.rid)
+            skip = dst_lease.shared_tokens // dst.pool.block_size
+            dst.pool.consume_cow(req.rid)
+            if self.assignment is not None:
+                state = state_to_device(state, dst.device)
+            t0 = tracer.now()
+            snapshot_wait(state)
+            stall = tracer.now() - t0
+            dst.adopt(req, state, steps_total=remaining, skip_blocks=skip)
+            dst.pool.note_write(
+                req.rid,
+                min(written, req.total_tokens) - dst_lease.written_tokens)
+            self._fed_base[req.rid] = fed_base
+            n_bytes = SlotEngine.state_nbytes(state)
+            price = transfer_cost(n_bytes, src_dev, dst_dev,
+                                  link_bw=self._handoff_link_bw)
+            self.handoff.record(n_bytes, price, stall_s=stall, live=True)
+            moved += 1
+            if h is not None:
+                tracer.end(h, args={"bytes": n_bytes,
+                                    "modeled_s": price.t_transfer,
+                                    "kind": "live-migration",
+                                    "from": src.name, "to": dst.name,
+                                    "remaining_steps": remaining,
+                                    "stall_s": stall})
+        return moved
 
     # ---- main loop -------------------------------------------------------
     def run(self, requests: List[Request], *,
@@ -408,6 +507,7 @@ class DisaggregatedEngineLoop:
     def start_run(self) -> None:
         self._ready = []
         self._pending = []
+        self._fed_base = {}
 
     def in_flight(self) -> bool:
         return bool(self._ready or self._pending or self.prefill.n_active
@@ -445,9 +545,16 @@ class DisaggregatedEngineLoop:
         # adopt finished in-flight hand-offs before dispatching new ones
         self._drain_handoffs()
 
-        # migrate phase-boundary requests (decode budget + pool gated)
-        self._ready = [req for req in self._ready
-                       if not self._dispatch_handoff(req)]
+        # migrate phase-boundary requests (decode budget + pool gated), or,
+        # when placement actuation moved the decode phase onto the prefill
+        # engine, resume them in place (colocated step math)
+        if self._decode_target == "prefill":
+            for req in self._ready:
+                self.prefill.steps_total[req.slot] += req.max_new_tokens - 1
+            self._ready = []
+        else:
+            self._ready = [req for req in self._ready
+                           if not self._dispatch_handoff(req)]
 
         # admit new arrivals into the prefill engine; ready requests
         # still hold prefill slots, so n_active covers them
@@ -468,7 +575,7 @@ class DisaggregatedEngineLoop:
     def dispatch(self, throttle: bool, budget: Optional[int]) -> int:
         # one burst per engine per driver iteration; parked (phase-boundary)
         # prefill slots are active but not burstable
-        tracer = self.obs.tracer
+        tracer, fb, wd = self.obs.tracer, self.obs.feedback, self.obs.watchdog
         n = 0
         for eng, batcher in ((self.prefill, self.prefill_batcher),
                              (self.decode, self.decode_batcher)):
@@ -493,16 +600,139 @@ class DisaggregatedEngineLoop:
                 int(remaining.min()), throttle=throttle,
                 budget=None if budget is None else budget - n)
             if burst > 0:
+                n_burst = int(mask.sum())
                 h = (tracer.begin("burst", track=f"engine:{eng.name}",
                                   cat="engine",
-                                  args={"steps": burst,
-                                        "n_active": int(mask.sum())})
+                                  args={"steps": burst, "n_active": n_burst})
                      if tracer.enabled else None)
+                # only decode-engine bursts feed the telemetry: they run the
+                # per-token decode step admission prices (a prefill burst
+                # attributed to the decode batch size would double-count).
+                # The watchdog watches both phases, each stream priced by
+                # its own batcher
+                feed = fb is not None and eng is self.decode
+                timed = feed or wd is not None
+                t0 = tracer.now() if timed else 0.0
                 eng.dispatch(burst, mask)
+                if timed:
+                    # a pure wait: outputs stay bit-identical
+                    eng.sync()
+                    dt = tracer.now() - t0
+                    if feed:
+                        fb.observe_burst(n_burst, burst, dt)
+                    if wd is not None:
+                        wd.observe_burst(
+                            eng.name, batcher.phase, n_tokens=n_burst,
+                            steps=burst, elapsed_s=dt,
+                            priced_step_s=batcher.priced_step_s(n_burst))
                 if h is not None:
-                    tracer.end(h)
+                    tracer.end(h, args={"synced": timed})
                 n += burst
         return n
+
+    def on_drift(self, alert, watchdog) -> None:
+        """Watchdog action leg, disaggregated: re-price the drifted phase's
+        admission and re-run the placement DSE with that phase's device
+        de-rated by the observed divergence.
+
+        When both phases price on one placement engine the fresh
+        :func:`~repro_torch.serving.placement.place_phases` decision is
+        recorded as *advice* (the ``reprice`` event's detail); with distinct
+        per-phase engine names it actuates: if it moves the decode phase
+        onto the other hosted engine, the loop switches its decode target
+        and live-migrates in-flight slots (:meth:`_live_migrate`).
+        """
+        batcher = {"prefill": self.prefill_batcher,
+                   "decode": self.decode_batcher}.get(alert.phase)
+        if batcher is None:
+            return
+        fn, source = watchdog.step_time_fn(
+            alert.engine, alert.phase, batcher.analytic_step_s)
+        if source == "analytic":
+            return                       # nothing observed: keep the model
+        detail = batcher.reprice(fn, source=source)
+        detail.update(self._replace_placement(alert))
+        watchdog.note_reprice(alert, detail)
+
+    def _replace_placement(self, alert) -> Dict:
+        """Re-run ``place_phases`` with the drifted device de-rated by the
+        observed ratio; returns JSON-safe advice for the re-price event
+        (plus what, if anything, was actuated)."""
+        prefill = alert.phase == "prefill"
+        name = (self._prefill_placement_name if prefill
+                else self._decode_placement_name)
+        dev = self._prefill_dev if prefill else self._decode_dev
+        try:
+            scaled = drift_scaled_device(dev, alert.ewma_ratio)
+            # both hosted engines enter the DSE on their actual device
+            # models, the drifted one de-rated
+            overrides = {self._prefill_placement_name: self._prefill_dev,
+                         self._decode_placement_name: self._decode_dev}
+            overrides[name] = scaled
+            # with distinct per-phase engines the decision is meant to
+            # actuate, so the DSE is restricted to the hosted pair: a third
+            # engine the loop cannot run on would make every decision
+            # unactionable advice
+            engines = None
+            if self._prefill_placement_name != self._decode_placement_name:
+                hosted = [ENGINES_BY_NAME[n]
+                          for n in (self._prefill_placement_name,
+                                    self._decode_placement_name)
+                          if n in ENGINES_BY_NAME]
+                engines = hosted if len(hosted) == 2 else None
+            pool = self.decode.pool
+            prompt_len = max(pool.max_seq // 2, 1)
+            decision = place_phases(
+                self.cfg, engines, objective="latency",
+                prompt_len=prompt_len,
+                gen_len=max(pool.max_seq - prompt_len, 1),
+                batch=pool.n_slots, link_bw=self._handoff_link_bw,
+                device_overrides=overrides)
+            advice = {"placement_advice": {
+                          "prefill_engine": decision.prefill_engine,
+                          "decode_engine": decision.decode_engine,
+                          "colocated": decision.colocated,
+                          "objective": decision.objective,
+                          "value": float(decision.best.value)},
+                      "drifted_device": scaled.name}
+            advice.update(self._actuate_placement(decision))
+            return advice
+        except Exception as e:           # advice must never kill the run
+            return {"placement_advice": None,
+                    "placement_error": repr(e)}
+
+    def _actuate_placement(self, decision) -> Dict:
+        """Turn a fresh placement decision into a mid-run engine switch.
+
+        Only possible when the two phases price on *distinct* placement
+        engine names (otherwise the decision cannot be mapped onto the
+        hosted engines and stays advice).  If the decision's decode engine
+        is one of the hosted pair and differs from the current decode
+        target, the hand-off pipeline drains, the target flips, and
+        in-flight decode slots live-migrate (as capacity allows)."""
+        if self.spec is not None:
+            return {"actuated": False,
+                    "reason": "speculative decoding pins the decode engine"}
+        if self._prefill_placement_name == self._decode_placement_name:
+            return {"actuated": False, "reason": "single-engine placement"}
+        target = {self._decode_placement_name: "decode",
+                  self._prefill_placement_name: "prefill"}.get(
+                      decision.decode_engine)
+        if target is None:
+            return {"actuated": False,
+                    "reason": f"decode engine {decision.decode_engine!r} "
+                              f"is not hosted"}
+        if target == self._decode_target:
+            return {"actuated": False, "decode_target": target}
+        self._drain_handoffs(force_all=True)
+        self._decode_target = target
+        moved = self._live_migrate(target)
+        if self.obs.tracer.enabled:
+            self.obs.tracer.instant(
+                "placement_actuated", track="server", cat="watchdog",
+                args={"decode_target": target, "live_migrations": moved})
+        return {"actuated": True, "decode_target": target,
+                "live_migrations": moved}
 
     def sample(self, metrics: ServeMetrics) -> None:
         # capacity-weighted across the two pools: occupancy by total_blocks,
@@ -514,12 +744,18 @@ class DisaggregatedEngineLoop:
     def scan(self, clock: Callable[[], float], metrics: ServeMetrics,
              sink: TokenSink) -> None:
         now = clock()
-        # prefill completions -> phase boundary
+        # prefill completions -> phase boundary (or a flip in place when the
+        # decode target is the prefill engine itself)
         ready_rids = {r.rid for r in self._ready}
         for s, req in enumerate(self.prefill.slots):
             if req is None or req.rid in ready_rids:
                 continue
-            req.n_fed = int(self.prefill.steps_done[s]) + req.shared_tokens
+            base = self._fed_base.get(req.rid)
+            if base is not None:         # a live-migrated decode slot here
+                req.n_fed = base + int(self.prefill.steps_done[s])
+            else:
+                req.n_fed = (int(self.prefill.steps_done[s])
+                             + req.shared_tokens)
             if (req.state is not RequestState.DECODE
                     and self.prefill.steps_done[s]
                     >= self.prefill.steps_total[s]):
@@ -527,33 +763,42 @@ class DisaggregatedEngineLoop:
                 req.state = RequestState.DECODE
                 req.t_first_dispatch = now
                 trace_phase_flip(self.obs.tracer, req, now)
-                self._ready.append(req)
-                ready_rids.add(req.rid)
+                if self._decode_target == "prefill":
+                    # actuated placement: the prefill engine carries the
+                    # decode phase in place (colocated step math, no
+                    # hand-off)
+                    self.prefill.steps_total[s] += req.max_new_tokens - 1
+                else:
+                    self._ready.append(req)
+                    ready_rids.add(req.rid)
         for s, req in enumerate(self.decode.slots):
             if req is not None:
-                req.n_fed = req.prompt_len + int(self.decode.steps_done[s])
+                base = self._fed_base.get(req.rid, req.prompt_len)
+                req.n_fed = base + int(self.decode.steps_done[s])
         # streaming: burst-boundary sync per engine — the prefill engine
         # emits first samples (including parked slots), the decode engine
         # the rest of each generation
         sink.drain(self.prefill, clock)
         sink.drain(self.decode, clock)
-        # decode completions
+        # decode completions, on whichever engine carries the slot now
         tracer = self.obs.tracer
-        eng = self.decode
-        for s, req in enumerate(eng.slots):
-            if req is None or req.state is not RequestState.DECODE:
-                continue
-            if eng.steps_done[s] >= eng.steps_total[s]:
-                h = (tracer.begin("sync", track=f"engine:{eng.name}",
-                                  cat="engine",
-                                  args={"kind": "completion"})
-                     if tracer.enabled else None)
-                row = eng.pull_output(s)
-                if h is not None:
-                    tracer.end(h)
-                req.state = RequestState.DONE
-                req.t_done = clock()
-                sink.finish(req, row[:req.max_new_tokens], req.t_done)
-                eng.release(req)
-                metrics.observe(req)
-                trace_completion(tracer, req)
+        for eng in (self.decode, self.prefill):
+            for s, req in enumerate(eng.slots):
+                if (req is None or req.state is not RequestState.DECODE
+                        or req.rid in ready_rids):
+                    continue
+                if eng.steps_done[s] >= eng.steps_total[s]:
+                    h = (tracer.begin("sync", track=f"engine:{eng.name}",
+                                      cat="engine",
+                                      args={"kind": "completion"})
+                         if tracer.enabled else None)
+                    row = eng.pull_output(s)
+                    if h is not None:
+                        tracer.end(h)
+                    req.state = RequestState.DONE
+                    req.t_done = clock()
+                    sink.finish(req, row[:req.max_new_tokens], req.t_done)
+                    eng.release(req)
+                    self._fed_base.pop(req.rid, None)
+                    metrics.observe(req)
+                    trace_completion(tracer, req)

@@ -35,7 +35,7 @@ from repro_torch.configs import registry as pregistry
 from repro_torch.core import device_models as pdm
 from repro_torch.models import transformer as PT
 from repro_torch.models.convert import params_from_numpy
-from repro_torch.obs import Observability, Tracer
+from repro_torch.obs import DriftAlert, Observability, PerfWatchdog, Tracer
 from repro_torch.serving import (EngineLoop, KVPool, Request, SlotEngine,
                                  SpecPlan)
 from repro_torch.serving import api as papi
@@ -212,9 +212,10 @@ def test_unported_parts_raise_with_their_roadmap_item(weights):
     engine is ported, so a plan now builds the decoder beside it; and for
     recurrent layers and cross-attention (item 7), which are ported too, so
     a hybrid config and a gated cross-attention config now build (the
-    latter with a cross row per slot on both engines), and only the drift
-    hook is refused: ROADMAP §1 item 6c now, the disaggregated third of the
-    item 6 the match names (its colocated parts, 6a and 6b, are ported)."""
+    latter with a cross row per slot on both engines); and for the drift
+    hook (item 6c, re-placement and live migration), which is ported too:
+    handed an alert for a stream the watchdog has not observed, it keeps
+    the analytic model and re-prices nothing, as the JAX package's does."""
     plan = SpecPlan(draft_cfg=PCFG, draft_params=weights[1], k=2)
     spec = DisaggregatedEngineLoop(PCFG, weights[1], n_prefill_slots=1,
                                    n_decode_slots=1, max_seq=8, plan=plan,
@@ -238,8 +239,16 @@ def test_unported_parts_raise_with_their_roadmap_item(weights):
         assert tuple(eng.cache["cross"].shape) == (n, 4, PCFG.d_model)
     dis = DisaggregatedEngineLoop(PCFG, weights[1], n_prefill_slots=1,
                                   n_decode_slots=1, max_seq=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        dis.on_drift(None, None)
+    watchdog = PerfWatchdog()
+    alert = DriftAlert(engine="decode", phase="decode", t=0.0,
+                       ewma_ratio=3.0, priced_step_s=1e-3,
+                       observed_step_s=3e-3, n_obs=4, batch=1,
+                       direction="slow")
+    budget = dis.decode_batcher.token_budget
+    dis.on_drift(alert, watchdog)
+    assert watchdog.reprices == [] and dis.decode_batcher.n_reprices == 0
+    assert dis.decode_batcher.token_budget == budget
+    assert dis.decode_target == "decode"
 
 
 def test_loop_refuses_the_card_it_does_not_have(weights, monkeypatch):

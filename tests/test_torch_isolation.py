@@ -49,7 +49,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                  "serving.driver", "serving.kv_pool", "obs.trace",
                  "profiling.cache", "profiling.bench", "profiling.calibrate",
                  "profiling.pricer", "launch.profile", "launch.serve",
-                 "serving.api", "configs.registry", "obs.export",
+                 "serving.api", "serving.disagg", "serving.placement",
+                 "configs.registry", "obs.export",
                  "obs.watchdog", "obs.curves", "obs.feedback",
                  "models.moe", "models.ssm",
                  "configs.phi35_moe", "configs.mixtral_8x7b",

@@ -8,8 +8,8 @@
   run through both.  Valid options whose modules are not ported raise
   ``NotImplementedError`` in ``serve``, naming their ROADMAP item; the
   placement options (item 4), ``--speculate`` (item 5) and the watchdog,
-  telemetry feedback and persisted curves (item 6, on the colocated loop),
-  ported, serve.
+  telemetry feedback and persisted curves (item 6, colocated and
+  disaggregated), ported, serve.
 * ``serve(..., device="cpu")`` at float32 with the same weights gives the
   JAX package's ``serve()`` tokens, continuous (paged and dense) and static;
   its ``--trace`` output passes benchmarks/check_regression.py's gate, and
@@ -245,8 +245,8 @@ def test_unported_options_raise_with_their_roadmap_item(overrides, item,
     (neither placement, speculation nor re-pricing changes a token;
     ``--speculate`` alone prices the default self-draft worse than plain
     decode and serves plain).  The ``item 6`` options serve on the
-    colocated loop only: with ``--placement disagg`` they still raise,
-    naming item 6c (re-placement and live migration on that loop)."""
+    disaggregated loop too (``--placement disagg``: item 6c, re-placement
+    and live migration, is ported), with the colocated run's tokens."""
     options = _opts(papi, **overrides)
     options.validate()                       # valid, as in the JAX package
     if item not in ("item 4", "item 5", "item 6"):
@@ -255,12 +255,14 @@ def test_unported_options_raise_with_their_roadmap_item(overrides, item,
         return
     monkeypatch.chdir(tmp_path)              # the caches these options write
     small = dict(requests=4, prompt_len=8, gen_len=8, rate=1e9, slots=3)
-    if item == "item 6":
-        with pytest.raises(NotImplementedError, match="item 6c"):
-            papi.serve(_opts(papi, **small, **overrides, placement="disagg"),
-                       device="cpu")
     report = papi.serve(_opts(papi, **small, **overrides), device="cpu")
     colocated = papi.serve(_opts(papi, **small), device="cpu")
+    if item == "item 6":
+        disagg = papi.serve(_opts(papi, **small, **overrides,
+                                  placement="disagg"), device="cpu")
+        assert disagg.outputs == colocated.outputs
+        assert disagg.handoff["n_handoffs"] == small["requests"]
+        assert disagg.decode_target == "decode"
     assert report.summary["requests_done"] == small["requests"]
     assert [len(report.outputs[r.rid]) for r in report.requests] == [
         r.max_new_tokens for r in report.requests]
@@ -436,8 +438,9 @@ def test_cli_serves_on_the_cpu_and_exits_on_bad_options(float32_smoke,
         pserve_cli.main(["--device", "cpu", "--shared-frac", "0.5"])
     assert exc.value.code == 2
     # --speculate and --watchdog are ported: they serve (--speculate here
-    # priced worse than plain decode, so plain); an unported flag exits
-    # naming its ROADMAP item: --watchdog on the disaggregated loop
+    # priced worse than plain decode, so plain), --watchdog on the
+    # disaggregated loop too; an unported flag (a pod mesh) exits naming its
+    # ROADMAP item
     pserve_cli.main(["--device", "cpu", "--speculate", "--requests", "2",
                      "--prompt-len", "4", "--gen-len", "4", "--rate", "1e9",
                      "--slots", "2"])
@@ -449,9 +452,14 @@ def test_cli_serves_on_the_cpu_and_exits_on_bad_options(float32_smoke,
                      "--slots", "2"])
     out = capsys.readouterr().out
     assert "requests_done: 2" in out and "[serve] watchdog: " in out
-    with pytest.raises(SystemExit, match="item 6c"):
-        pserve_cli.main(["--device", "cpu", "--watchdog", "--placement",
-                         "disagg"])
+    pserve_cli.main(["--device", "cpu", "--watchdog", "--placement",
+                     "disagg", "--requests", "2", "--prompt-len", "4",
+                     "--gen-len", "4", "--rate", "1e9", "--slots", "2"])
+    out = capsys.readouterr().out
+    assert "requests_done: 2" in out and "[serve] watchdog: " in out
+    assert "[serve] decode target: decode engine" in out
+    with pytest.raises(SystemExit, match="item 9"):
+        pserve_cli.main(["--device", "cpu", "--mesh", "pod"])
 
 
 # ---------------------------------------------------------------------
