@@ -285,9 +285,26 @@ Phases, each of which raises (and so exits nonzero) on a failed check:
              within PREFILL_RTOL of chunked's.  Prints the
              alerts, re-prices, the curve's points and tok/s with and
              without the watchdog, in turns, median of three.
+15. migration — the watchdog's re-placement and live migration on the
+             disaggregated loop through serve() (MIGRATION_REQUESTS on
+             8 + 8 slots, decode mispriced), each leg's tokens held to the
+             colocated run's.
+16. sharding — the sharding policy and the meshes (models.sharding,
+             launch.mesh).  (a) build_params of qwen2-1.5B at full width
+             and depth on make_host_mesh("cuda"): every leaf a plain
+             tensor on cuda:0, bitwise equal to init_params(seed=0); then
+             SHARD_STEPS decode steps of SLOTS requests on a slot engine
+             under the paged kernel, eagerly, from each tree: the tokens
+             equal and the paged launches SHARD_STEPS x 28 for each.
+             (b) Under a fake process group of 256 and then 512 ranks
+             (torch.testing's fake backend, destroyed after each), every
+             LM arch's full-size parameters, as meta tensors, placed on
+             the production mesh: each local shape its global shape over
+             the product of its spec's axes, and the parameter bytes per
+             device printed for the pod and the multipod mesh.
 
-Every main-path phase (4, 4b, 6, 7, 8, 9, 10, 11, 12, 13, 14) sets every
-kernel's launch count to 0 just before it and reads them all just after
+Every main-path phase (4, 4b, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16) sets
+every kernel's launch count to 0 just before it and reads them all just after
 (4b's count covers its profile and its plan's run; 11 and 13 sum their
 runs, each counted so; 12's must all be 0).  The
 last line is {"ok": true,
@@ -302,7 +319,8 @@ those of phase 6 (flash) and 8 (paged).  "launches_by_phase" gives every
 kernel's count in every main-path phase, phase 10's under "speculation",
 phase 11's under "families", phase 12's under "train", phase 13's under
 "cross", phase 14's serve() runs under "obs" and its flash prefill of the
-served prompts under "served_prompts_prefill".
+served prompts under "served_prompts_prefill", phase 15's under
+"migration" and phase 16's under "sharding".
 Without a card, or outside a checkout of the repository, it exits nonzero
 before printing any result.  Imports nothing of JAX or of the JAX package.
 """
@@ -317,6 +335,7 @@ from pathlib import Path
 
 import numpy as np
 
+T_PROCESS = time.perf_counter()     # the module's load, for [done]
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
@@ -391,6 +410,11 @@ TRAIN_CROSS_T = 300
 # nothing)
 CROSS_FRAMES, CROSS_PROMPT, CROSS_MAX_SEQ, CROSS_TRAIN_STEPS = 512, 128, 512, 3
 VISION_LAYERS, VISION_GATE = 5, 1.0
+# phase 16: decode steps of the slot engine on the host mesh's weights
+SHARD_STEPS = 8
+# phase 16: the production meshes' rank counts (pod 16 x 16, multipod
+# 2 x 16 x 16)
+MESH_RANKS = ((256, False), (512, True))
 QUEUE_SLEEP_CYCLES = 20_000_000     # ~10 ms at the H100's 1.98 GHz boost
 FLUSH_BYTES = 256 << 20             # written between calls to empty the L2
 REPLACES = {
@@ -2852,6 +2876,151 @@ def phase_migration(torch, kern, cfg, params, plain_outputs, smi: str):
     return total
 
 
+def host_mesh_steps(torch, kern, cfg, params) -> tuple:
+    """SHARD_STEPS eager decode steps of SLOTS prompts on a paged slot
+    engine under the kernel, from ``params``: (each step's logits, the
+    kernels' launches)."""
+    import dataclasses
+    from repro_torch.serving import SlotEngine
+    from repro_torch.serving.kv_pool import KVPool
+    from repro_torch.serving.request import synthetic_workload
+
+    hopper = dataclasses.replace(cfg, paged_attention_impl="hopper")
+    max_seq = PROMPT + GEN
+    pool = KVPool(SLOTS, max_seq, block_size=PAGE)
+    eng = SlotEngine(hopper, params, pool, kv_layout="paged",
+                     cuda_graph=False)
+    for r in synthetic_workload(SLOTS, rate=1e9, vocab=cfg.vocab,
+                                prompt_lens=(PROMPT,), gen_lens=(GEN,),
+                                seed=3):
+        r.slot = pool.alloc(r.rid, r.total_tokens)
+        eng.bind(r, steps_total=r.prompt_len + r.max_new_tokens - 1)
+    for fn in kern.values():
+        fn.launches = 0
+    logits = []
+    with torch.no_grad():
+        for _ in range(SHARD_STEPS):
+            eng.dispatch(1, eng.active)
+            logits.append(eng.logits[:, -1].clone())
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kern.items()}
+    return torch.stack(logits), launches
+
+
+def _leaves(tree) -> list:
+    from repro_torch.models.transformer import map_params
+    out = []
+    map_params(lambda _, t: out.append(t), tree)
+    return out
+
+
+def production_placement(torch) -> None:
+    """16b. Every LM arch's parameters, as meta tensors, placed on the pod
+    and the multipod mesh under a fake process group of their ranks: each
+    local shape its global dims over its spec's axes; prints the parameter
+    bytes per device (rank 0's shards)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import sharding as shard_lib
+
+    archs = [n for n in registry.ARCH_NAMES
+             if registry.get(n).family == "lm"]
+    per_device = {n: {} for n in archs}
+    for ranks, multi_pod in MESH_RANKS:
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=ranks)
+        try:
+            mesh = make_production_mesh(multi_pod=multi_pod,
+                                        device_type="cpu")
+            axes = shard_lib.mesh_axes(mesh)
+            for name in archs:
+                cfg = registry.get(name).config
+                params = shard_lib.meta_params(cfg)
+                sh = shard_lib.param_shardings(
+                    cfg, shard_lib.make_policy(cfg, mesh), params)
+                placed = _leaves(shard_lib.place(params, sh))
+                for t, s in zip(placed, _leaves(sh)):
+                    want = []
+                    for dim, entry in zip(t.shape, s.spec):
+                        n = 1
+                        for a in ((entry,) if isinstance(entry, str)
+                                  else entry or ()):
+                            n *= axes[a]
+                        want.append(dim // n)
+                    local = tuple(t.to_local().shape)
+                    check(isinstance(t, DTensor) and local == tuple(want),
+                          f"{name} on {ranks} ranks: local shape {local} "
+                          f"for global {tuple(t.shape)} under {s.spec}")
+                per_device[name][ranks] = sum(
+                    t.to_local().numel() * t.element_size() for t in placed)
+        finally:
+            dist.destroy_process_group()
+    check(not dist.is_initialized(), "a process group outlived phase 16b")
+    for name in archs:
+        total = sum(t.numel() * t.element_size() for t in _leaves(
+            shard_lib.meta_params(registry.get(name).config)))
+        print(f"[sharding] {name}: parameter bytes {total:,} in all; per "
+              f"device {per_device[name][256]:,} on the pod mesh (16 x 16), "
+              f"{per_device[name][512]:,} on the multipod mesh "
+              f"(2 x 16 x 16)", flush=True)
+
+
+def phase_sharding(torch, kern, cfg, smi: str):
+    """16. The host mesh on the card, then the production meshes placed on
+    meta tensors (see the module docstring).  Returns the launches by
+    kernel of the placed tree's decode steps."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import api
+
+    t0 = time.perf_counter()
+    mesh = make_host_mesh("cuda")
+    placed = api.build_params(cfg, mesh)
+    plain = T.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    pairs, want = _leaves(placed), _leaves(plain)
+    check(len(pairs) == len(want), "placed tree's leaf count")
+    check(all(type(a) is torch.Tensor and a.device == torch.device("cuda", 0)
+              for a in pairs), "a placed leaf is not a plain tensor on "
+          "cuda:0")
+    same = all(torch.equal(a, b) for a, b in zip(pairs, want))
+    kinds = sorted({f"{type(a).__name__} on {a.device}" for a in pairs})
+    print(f"[sharding] host mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+          f": {len(pairs)} leaves of {cfg.name} placed ({', '.join(kinds)}), "
+          f"bitwise equal to init_params(seed=0): {same}; process group "
+          f"initialized: {dist.is_initialized()}", flush=True)
+    check(same, "placed parameters differ from init_params(seed=0)")
+    check(not dist.is_initialized(), "the host mesh made a process group")
+    del pairs, want
+    runs = {}
+    for tag, tree in (("placed", placed), ("plain", plain)):
+        runs[tag] = host_mesh_steps(torch, kern, cfg, tree)
+    del placed, plain
+    _free(torch)
+    (log_a, launches), (log_b, plain_launches) = runs["placed"], runs["plain"]
+    tok_a, tok_b = log_a.argmax(-1), log_b.argmax(-1)
+    print(f"[sharding] {SHARD_STEPS} decode steps of {SLOTS} slots: greedy "
+          f"tokens equal {torch.equal(tok_a, tok_b)}, logits bitwise equal "
+          f"{torch.equal(log_a, log_b)} (reported); launches placed "
+          f"{launches}, plain {plain_launches}", flush=True)
+    check(torch.equal(tok_a, tok_b), "the placed tree's tokens differ from "
+          "the plain tree's")
+    for got in (launches, plain_launches):
+        check(got["paged_attention"] == SHARD_STEPS * cfg.n_layers
+              and sum(got.values()) == got["paged_attention"],
+              f"host-mesh steps' launches {got}, expected paged_attention x "
+              f"{SHARD_STEPS} steps x {cfg.n_layers} layers and nothing else")
+    t1 = time.perf_counter()
+    production_placement(torch)
+    print(f"[sharding] phase 16: host mesh {t1 - t0:.1f} s, production "
+          f"meshes {time.perf_counter() - t1:.1f} s ({smi})", flush=True)
+    return launches
+
+
 def _free(torch) -> None:
     import gc
     gc.collect()
@@ -3768,6 +3937,10 @@ def main() -> None:
     migration_launches = phase_migration(torch, kern, QWEN2, params,
                                          entry_outputs, smi)
     del params
+    _free(torch)
+    # 16. the sharding policy: the host mesh on the card, the production
+    # meshes on meta tensors
+    sharding_launches = phase_sharding(torch, kern, QWEN2, smi)
     # 11. the MoE and recurrent families
     family_launches = phase_families(torch, kern, smi)
     # 12. training
@@ -3781,6 +3954,7 @@ def main() -> None:
                 "speculation": spec_launches, "families": family_launches,
                 "train": train_launches, "cross": cross_launches,
                 "obs": obs_launches, "migration": migration_launches,
+                "sharding": sharding_launches,
                 "served_prompts_prefill": obs_prefill_launches}
     home = {"flash_attention": "prefill", "paged_attention": "serve_entry"}
 
@@ -3816,7 +3990,9 @@ def main() -> None:
                            library_cold_device_ms=agg[
                                "library_cold_device_ms"])
         rows.append(row)
-    print(f"[done] {time.perf_counter() - t_start:.1f} s in all")
+    print(f"[done] {time.perf_counter() - t_start:.1f} s in all; main "
+          f"began {t_start - T_PROCESS:.1f} s after the module loaded; "
+          f"wall clock {time.time():.1f}", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

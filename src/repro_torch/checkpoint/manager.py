@@ -14,7 +14,7 @@ numpy has no bfloat16: a bfloat16 leaf is written as its raw 16 bits
 (uint16) with dtype ``"bfloat16"`` in the manifest, and read back as
 bfloat16.  Restore loads every leaf onto one given device, or each onto
 its template leaf's device; restoring onto another mesh (resharding) comes
-with the sharding work (ROADMAP §1 item 9).
+with the trainer across devices (ROADMAP §1 item 9b).
 """
 from __future__ import annotations
 

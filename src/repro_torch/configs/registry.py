@@ -10,8 +10,11 @@ skip rules (long_500k needs sub-quadratic attention).
 
 Every architecture is ported: the decoder-only ones, the encoder-decoder
 ``seamless_m4t_medium``, the vision decoder ``llama32_vision_90b`` and
-``alexnet``.  ``input_specs`` and ``runnable_cells`` wait for the dry run
-(ROADMAP §1 item 9).
+``alexnet``.  ``runnable_cells`` lists the (arch, shape) cells and
+``input_specs`` gives each cell's abstract inputs as tensors on the
+``meta`` device (nothing allocated), the JAX package's ``ShapeDtypeStruct``
+stand-ins; the step builders and the dry run that take them are ROADMAP §1
+item 9a-ii.
 """
 from __future__ import annotations
 
@@ -19,7 +22,9 @@ import dataclasses
 import importlib
 from typing import Dict, Optional, Tuple
 
-from ..models.transformer import ModelConfig
+import torch
+
+from ..models.transformer import ModelConfig, init_cache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,3 +96,58 @@ def supports(arch: ArchSpec, shape_name: str) -> Tuple[bool, str]:
         return False, ("pure full-attention arch: O(L^2) attention at "
                        "L=524288 is not servable — skipped per assignment")
     return True, ""
+
+
+def runnable_cells():
+    """All (arch, shape) pairs that must pass the dry-run."""
+    cells = []
+    for name in ARCH_NAMES:
+        arch = get(name)
+        if arch.family == "cnn":
+            continue
+        for shape_name in SHAPES:
+            ok, _ = supports(arch, shape_name)
+            if ok:
+                cells.append((name, shape_name))
+    return cells
+
+
+# ---------------------------------------------------------------------------
+# Abstract input specs (meta tensors — no allocation)
+# ---------------------------------------------------------------------------
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(arch: ArchSpec, shape_name: str) -> Dict:
+    """Returns the abstract inputs for the step function of this cell.
+
+    train:   {"batch": {tokens, labels[, enc_inputs | img_embeds]}}
+    prefill: {"tokens": (B,S)[, enc_inputs | img_embeds]}
+    decode:  {"tokens": (B,1), "cache": <meta cache, init_cache's layout>}
+    """
+    cfg = arch.config
+    shape = SHAPES[shape_name]
+    b, s = shape.global_batch, shape.seq_len
+    tok = lambda seq: _meta((b, seq), torch.int32)
+
+    def frontend(seq):
+        ex = {}
+        if cfg.encoder_decoder:
+            ex["enc_inputs"] = _meta((b, seq, cfg.d_model), torch.bfloat16)
+        elif cfg.frontend == "vision":
+            ex["img_embeds"] = _meta((b, cfg.img_seq, cfg.d_model),
+                                     torch.bfloat16)
+        return ex
+
+    if shape.mode == "train":
+        batch = {"tokens": tok(s), "labels": tok(s)}
+        batch.update(frontend(s))
+        return {"batch": batch}
+    if shape.mode == "prefill":
+        out = {"tokens": tok(s)}
+        out.update(frontend(s))
+        return out
+    # decode: abstract cache of length s
+    return {"tokens": tok(1),
+            "cache": init_cache(cfg, b, max_seq=s, device="meta")}

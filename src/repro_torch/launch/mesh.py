@@ -1,30 +1,75 @@
-"""Device topology: phase device assignment for disaggregated serving.
+"""Device topology: mesh construction and phase device assignment.
 
-:class:`DeviceAssignment` pins the prefill and decode engines to devices:
-with at least two visible devices they go to distinct ones, otherwise both
-share the one there is (the JAX package's policy, and what one H100 gives).
-Devices are ``torch.device`` objects of one type, ``cuda`` (every visible
-card) or ``cpu`` (one device).
+Functions (not module-level constants) so importing this module touches no
+device and no process group.  Two concerns live here:
+
+* **Meshes** for params/cache sharding (``models.sharding``), as
+  ``torch.distributed`` ``DeviceMesh`` objects with the JAX package's axis
+  names.  Single pod: 16x16 = 256 ranks, axes (data, model).  Multi-pod:
+  2 pods = 512 ranks, axes (pod, data, model); 'pod' is the outer
+  data-parallel axis.  The production meshes span the default process
+  group (one rank per card, launched with ``torchrun``); the host mesh is
+  1x1 over one device and needs no process group.  Serve and train place
+  their weights on the host mesh; ``build_step`` and the dry run on the
+  production meshes are ROADMAP §1 item 9a-ii, serving and training on
+  them item 9b.
+* **Phase device assignment** for disaggregated serving
+  (:class:`DeviceAssignment`): with at least two visible devices the
+  prefill and decode engines go to distinct ones, otherwise both share the
+  one there is (the JAX package's policy, and what one H100 gives).
+  Devices are ``torch.device`` objects of one type, ``cuda`` (every
+  visible card) or ``cpu`` (one device).
 
 Not here, unlike the JAX package's ``launch/mesh.py``:
-
-* ``make_production_mesh`` and ``make_host_mesh`` (params and cache
-  sharding over a pod) come with the sharding work (ROADMAP §1 item 9);
-* ``forced_host_device_env`` sets an XLA flag that splits a CPU host into
-  logical devices.  PyTorch has no counterpart: its CPU is one device, so
-  the two-device hand-off runs only where two cards are visible.
+``forced_host_device_env`` sets an XLA flag that splits a CPU host into
+logical devices.  PyTorch has no counterpart: its CPU is one device, so the
+two-device hand-off runs only where two cards are visible (a fake process
+group stands in for a pod's ranks in tests).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 # quoted when an index is out of range, so the error says how to see more
 # devices
 MULTI_DEVICE_HINT = ("a distinct decode device needs a second card: "
                      "CUDA_VISIBLE_DEVICES selects which are visible")
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda") -> DeviceMesh:
+    """The pod mesh (data=16, model=16), or with ``multi_pod`` the
+    (pod=2, data=16, model=16) mesh, over the default process group."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else 1
+    if have < need:
+        raise RuntimeError(
+            f"mesh {shape} needs {need} ranks but the process group has "
+            f"{have}: launch {need} processes, one per device (e.g. "
+            f"torchrun --nnodes N --nproc-per-node 8 with N * 8 = {need}), "
+            f"each calling torch.distributed.init_process_group first")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def make_host_mesh(device="cuda") -> DeviceMesh:
+    """Degenerate 1x1 mesh over one device, axes (data, model), built with
+    no process group (a plain process serves or trains on it).  The device
+    is recorded on the mesh as ``host_device`` (``sharding.mesh_device``
+    reads it)."""
+    device = torch.device(device)
+    mesh = DeviceMesh(device.type, torch.zeros((1, 1), dtype=torch.int),
+                      mesh_dim_names=("data", "model"), _init_backend=False,
+                      _rank=0)
+    mesh.host_device = device
+    return mesh
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,10 @@
 """The train step: loss and gradients of ``models.transformer.loss_fn``,
 gradient accumulation over microbatches, optional int8 compression with
 error feedback, and the optimizer's update (the JAX package's
-``launch/steps.py`` train step and ``_accum_grads``).  The dry-run and
-prefill step builders come with the sharding work (ROADMAP §1 item 9)."""
+``launch/steps.py`` train step and ``_accum_grads``).  ``build_step``, the
+dry run's and the prefill step's builder with its activation-sharding
+constraint, is ROADMAP §1 item 9a-ii; the placements it reads are
+``models.sharding``'s."""
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Tuple

@@ -23,8 +23,12 @@ unless ``--device cpu`` is given, and raises without one).  Wired in:
     it, and int8 gradient compression with error feedback
     (``--grad-compression int8``).
 
-``--mesh pod`` and ``--mesh multipod`` wait for the sharding work (ROADMAP
-§1 item 9) and raise.
+The parameters are placed as in the JAX package: drawn from seed 0 on the
+host mesh's device and put on their shardings (``models.sharding``; on the
+1x1 host mesh, which needs no process group, each leaf stays the plain
+tensor), again after a restore; the optimizer state follows them.
+``--mesh pod`` and ``--mesh multipod`` wait for the trainer across devices
+(ROADMAP §1 item 9b) and raise.
 """
 from __future__ import annotations
 
@@ -38,9 +42,11 @@ import torch
 from ..checkpoint import CheckpointManager
 from ..configs import registry
 from ..data import DataConfig, make_pipeline
+from ..models import sharding as shard_lib
 from ..models import transformer as T
 from ..optim import adamw, compression, schedules
 from ..runtime import PreemptionHandler, StepTimer
+from .mesh import make_host_mesh
 from .steps import make_train_step
 
 
@@ -80,7 +86,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.mesh != "host":
         raise NotImplementedError(
             f"--mesh {args.mesh}: not ported yet; ROADMAP §1 item 9 "
-            "(sharding) ports it")
+            "(sharding, 9b: the trainer across devices) ports it")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train: no CUDA device is available; pass "
@@ -94,6 +100,9 @@ def main(argv: Optional[List[str]] = None) -> None:
         cfg = dataclasses.replace(cfg, scan_chunk=min(cfg.scan_chunk,
                                                       args.seq))
 
+    mesh = make_host_mesh(device)
+    policy = shard_lib.make_policy(cfg, mesh)
+
     # ---- data -------------------------------------------------------
     dcfg = DataConfig(global_batch=args.batch, seq_len=args.seq,
                       vocab=cfg.vocab, frontend=cfg.frontend,
@@ -106,6 +115,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         _schedule(arch.lr_schedule, args.steps, args.lr),
         decay=T.decay_mask(cfg))
     params = T.init_params(cfg, seed=0, device=device)
+    p_sh = shard_lib.param_shardings(cfg, policy, params)
+    params = shard_lib.place(params, p_sh)
     opt_state = init_opt(params)
     err_fb = (compression.init_error(params)
               if args.grad_compression == "int8" else None)
@@ -120,6 +131,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         if restored:
             start_step, state, extra = restored
             params, opt_state = state["params"], state["opt"]
+            params = shard_lib.place(params, p_sh)
             if "data" in extra:
                 pipe.restore(extra["data"])
             print(f"[restore] resumed at step {start_step}")

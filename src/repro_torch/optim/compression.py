@@ -12,8 +12,8 @@ Karimireddy et al. 2019):
 ``torch.round`` rounds half to even, as ``jnp.round`` does, so the port's
 int8 values equal the JAX package's bit for bit.  Behind the trainer's
 ``--grad-compression int8``; the cross-pod all-reduce it compresses for
-comes with the sharding work (ROADMAP §1 item 9), so on one card the
-dequantized gradients go straight to the optimizer.
+comes with the trainer across devices (ROADMAP §1 item 9b), so on one card
+the dequantized gradients go straight to the optimizer.
 """
 from __future__ import annotations
 

@@ -58,9 +58,13 @@ decode phase onto the other engine and live-migrating in-flight slots
 (``--misprice-phase`` scopes the injected error to one phase's device
 model).
 
-Options whose modules are not ported yet pass ``validate()`` as they do in
-the JAX package and then raise ``NotImplementedError`` in ``serve``, naming
-the ROADMAP item that ports them: the production meshes (§1 item 9).
+The weights are placed as in the JAX package: ``build_params(cfg, mesh)``
+draws them from seed 0 on the mesh's device and puts each leaf on its
+sharding (``models.sharding``); ``--mesh host`` is the 1x1 host mesh over
+``device``, which needs no process group.  Options whose modules are not
+ported yet pass ``validate()`` as they do in the JAX package and then raise
+``NotImplementedError`` in ``serve``, naming the ROADMAP item that ports
+them: serving on the production meshes (§1 item 9b).
 """
 from __future__ import annotations
 
@@ -73,7 +77,8 @@ import torch
 
 from ..configs import registry
 from ..core.engines import ENGINES_BY_NAME
-from ..launch.mesh import device_assignment
+from ..launch.mesh import device_assignment, make_host_mesh
+from ..models import sharding as shard_lib
 from ..models import transformer as T
 from ..obs import (AcceptanceTracker, Observability, PerfWatchdog,
                    TelemetryFeedback, Tracer, default_clock,
@@ -323,8 +328,8 @@ def refuse_unported(options: ServeOptions) -> None:
     mesh = options.engine.mesh
     if mesh != "host":
         raise NotImplementedError(
-            f"--mesh {mesh}: not ported yet; ROADMAP §1 item 9 (sharding) "
-            f"ports it")
+            f"--mesh {mesh}: not ported yet; ROADMAP §1 item 9 (sharding, "
+            f"9b: the engines on sharded weights) ports it")
 
 
 # ---------------------------------------------------------------------------
@@ -387,9 +392,14 @@ class Server:
         return torch.cat(out, dim=1).to(torch.int32)
 
 
-def build_params(cfg: T.ModelConfig, device="cuda"):
-    """Random weights from seed 0, drawn on ``device``."""
-    return T.init_params(cfg, seed=0, device=device)
+def build_params(cfg: T.ModelConfig, mesh):
+    """Random weights from seed 0, drawn on the mesh's device and placed
+    on ``mesh`` by the sharding policy (on the host mesh each leaf stays
+    the plain tensor it was drawn as)."""
+    policy = shard_lib.make_policy(cfg, mesh)
+    params = T.init_params(cfg, seed=0, device=shard_lib.mesh_device(mesh))
+    return shard_lib.place(params,
+                           shard_lib.param_shardings(cfg, policy, params))
 
 
 def _silent(*args, **kwargs) -> None:
@@ -573,7 +583,8 @@ def serve(options: ServeOptions, *, device="cuda", verbose: bool = False,
                              f"{sorted(set(cfg.layer_types()))} "
                              f"(recurrent/cross state is slot-local)")
 
-    params = build_params(cfg, device)
+    mesh = make_host_mesh(device)
+    params = build_params(cfg, mesh)
     max_len = w.prompt_len + w.gen_len
 
     if e.static_batching:
@@ -725,7 +736,7 @@ def serve(options: ServeOptions, *, device="cuda", verbose: bool = False,
         if forced or decision.use:
             # a draft that is the target shares its weights (both seed 0)
             draft_params = (params if draft_cfg == cfg
-                            else build_params(draft_cfg, device))
+                            else build_params(draft_cfg, mesh))
             tracker = AcceptanceTracker(decide=None if forced else _decide)
             spec_plan = SpecPlan(draft_cfg, draft_params, k=k,
                                  draft_name=draft_arch, decision=decision,

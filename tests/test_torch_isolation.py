@@ -41,6 +41,17 @@ def test_no_jax_or_reference_imports():
     assert not offending, offending
 
 
+def test_package_imports_no_torch_testing():
+    """``torch.testing`` (the fake process group among it) is for tests and
+    ``chip_smoke.py``; the package and its benchmarks do without it."""
+    offending = [
+        (str(p.relative_to(REPO)), m) for p in _port_files()
+        if p.name != "chip_smoke.py"
+        for m in _imported_modules(p)
+        if m == "torch.testing" or m.startswith("torch.testing.")]
+    assert not offending, offending
+
+
 def test_every_module_imports_with_jax_and_repro_blocked():
     modules = [m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, prefix="repro_torch.")]
@@ -59,7 +70,7 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                  "configs.minicpm_2b", "optim.adamw", "optim.schedules",
                  "optim.compression", "data.pipeline", "checkpoint.manager",
                  "runtime.fault_tolerance", "launch.steps", "launch.train",
-                 "tree"):
+                 "models.sharding", "launch.mesh", "tree"):
         assert f"repro_torch.{name}" in modules
     benches = sorted(p.stem for p in (REPO / "benchmarks").glob(
         "bench_torch_*.py"))
