@@ -302,8 +302,25 @@ Phases, each of which raises (and so exits nonzero) on a failed check:
              the production mesh: each local shape its global shape over
              the product of its spec's axes, and the parameter bytes per
              device printed for the pod and the multipod mesh.
+17. steps — launch.steps.build_step's three steps of qwen2-1.5B at full
+             width and depth on make_host_mesh("cuda"), run through
+             steps.sharded on real inputs: (a) the train step on 8 x 128
+             tokens of SyntheticLM (fp32 masters, the optimizer past its
+             warm-up's first step), bitwise equal to make_train_step with
+             the same optimizer and schedule (loss, metrics, every
+             parameter); the prefill step of one 512-token prompt under
+             attention_impl "hopper", bitwise equal to T.forward(...,
+             emit_cache=True)'s last logits and cache, within PREFILL_RTOL
+             of "chunked"'s logits, with 28 flash launches; STEPS_DECODE
+             decode steps of STEPS_SLOTS rows of a dense cache, bitwise
+             equal to T.decode_step's logits and cache; no process group.
+             (b) The dry run on this machine's torch, on the CPU and no
+             card: one pattern unit of qwen2 decode_32k on the pod mesh
+             under a fake 256-rank group (python -m
+             repro_torch.launch.dryrun in a subprocess that sees no card),
+             its record printed and required "ok".
 
-Every main-path phase (4, 4b, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16) sets
+Every main-path phase (4, 4b, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17) sets
 every kernel's launch count to 0 just before it and reads them all just after
 (4b's count covers its profile and its plan's run; 11 and 13 sum their
 runs, each counted so; 12's must all be 0).  The
@@ -320,7 +337,8 @@ kernel's count in every main-path phase, phase 10's under "speculation",
 phase 11's under "families", phase 12's under "train", phase 13's under
 "cross", phase 14's serve() runs under "obs" and its flash prefill of the
 served prompts under "served_prompts_prefill", phase 15's under
-"migration" and phase 16's under "sharding".
+"migration", phase 16's under "sharding" and phase 17's (the built
+steps alone) under "steps".
 Without a card, or outside a checkout of the repository, it exits nonzero
 before printing any result.  Imports nothing of JAX or of the JAX package.
 """
@@ -415,6 +433,11 @@ SHARD_STEPS = 8
 # phase 16: the production meshes' rank counts (pod 16 x 16, multipod
 # 2 x 16 x 16)
 MESH_RANKS = ((256, False), (512, True))
+# phase 17: the built decode step's rows (a dense cache of STEPS_SLOTS x
+# (PROMPT + GEN), filled at random to position PROMPT) and its steps; the
+# train step starts its optimizer at STEPS_OPT_STEP (past the first
+# warm-up step, where build_step's schedule gives a learning rate of 0)
+STEPS_SLOTS, STEPS_DECODE, STEPS_OPT_STEP = 8, 4, 100
 QUEUE_SLEEP_CYCLES = 20_000_000     # ~10 ms at the H100's 1.98 GHz boost
 FLUSH_BYTES = 256 << 20             # written between calls to empty the L2
 REPLACES = {
@@ -3021,6 +3044,183 @@ def phase_sharding(torch, kern, cfg, smi: str):
     return launches
 
 
+def _bitwise(torch, a, b) -> bool:
+    """Two trees of tensors (dicts, lists, tuples) equal leaf for leaf, bit
+    for bit."""
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(la, lb))
+
+
+def built_train(torch, cfg, mesh) -> None:
+    """17a, train: the built step and make_train_step, each from seed 0's
+    parameters and a fresh optimizer state at STEPS_OPT_STEP."""
+    from repro_torch.configs import registry
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+
+    fn, in_sh, out_sh, donate, _ = steps.build_step(
+        registry.get("qwen2_1_5b"), "train_4k", mesh)
+    batch = next(SyntheticLM(DataConfig(global_batch=TRAIN_BATCH,
+                                        seq_len=TRAIN_SEQ, vocab=cfg.vocab)))
+    runs = {}
+    for tag in ("built", "direct"):
+        params = T.init_params(cfg, seed=0)
+        opt = adamw.adamw_init(params)
+        opt.step.fill_(STEPS_OPT_STEP)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if tag == "built":
+            params, opt, metrics = steps.sharded(fn, in_sh, out_sh)(
+                params, opt, batch)
+        else:
+            _, update = adamw.make_optimizer(steps._schedule("cosine"),
+                                             decay=T.decay_mask(cfg))
+            params, opt, _, metrics = steps.make_train_step(cfg, update)(
+                params, opt, None, batch)
+        torch.cuda.synchronize()
+        runs[tag] = (params, opt, metrics, time.perf_counter() - t0)
+    (p_a, o_a, m_a, s_a), (p_b, o_b, m_b, s_b) = runs["built"], \
+        runs["direct"]
+    same_m = _bitwise(torch, m_a, m_b)
+    same_p = _bitwise(torch, p_a, p_b) and _bitwise(torch, o_a, o_b)
+    print(f"[steps] train {TRAIN_BATCH} x {TRAIN_SEQ} (donate {donate}): "
+          f"built loss "
+          f"{float(m_a['loss']):.6f} lr {float(m_a['lr']):.3e} grad_norm "
+          f"{float(m_a['grad_norm']):.4f} in {s_a * 1e3:.1f} ms, direct "
+          f"{s_b * 1e3:.1f} ms; metrics bitwise equal {same_m}, parameters "
+          f"and optimizer state bitwise equal {same_p}", flush=True)
+    check(same_m and same_p, "the built train step differs from "
+          "make_train_step")
+    check(float(m_a["lr"]) > 0 and np.isfinite(float(m_a["loss"])),
+          f"train step metrics {m_a}")
+
+
+def built_prefill_decode(torch, kern, cfg, mesh) -> dict:
+    """17a, prefill and decode: returns the built steps' launches."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+
+    hopper = dataclasses.replace(cfg, attention_impl="hopper")
+    params = T.compute_params(T.init_params(cfg, seed=0), cfg)
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=(
+        1, PREFILL_TOKENS), dtype=np.int64)).cuda()
+    arch = dataclasses.replace(registry.get("qwen2_1_5b"), config=hopper)
+    pre = steps.build_step(arch, "prefill_32k", mesh)
+    dec = steps.build_step(registry.get("qwen2_1_5b"), "decode_32k", mesh)
+    max_seq = PROMPT + GEN
+    cache = T.init_cache(cfg, STEPS_SLOTS, max_seq)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for layer in cache["layers"]:
+        for t in layer.values():
+            t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+    cache["pos"].fill_(PROMPT)
+    caches = {tag: T.map_params(lambda _, t: t.clone(), cache)
+              for tag in ("built", "direct")}
+    steps_tokens = [torch.from_numpy(rng.integers(
+        0, cfg.vocab, size=(STEPS_SLOTS, 1), dtype=np.int64)).cuda()
+        for _ in range(STEPS_DECODE)]
+    with torch.no_grad():
+        T.forward(params, hopper, tokens)              # first-call costs
+        torch.cuda.synchronize()
+        for fn in kern.values():
+            fn.launches = 0
+        logits, pcache = steps.sharded(*pre[:3])(params, tokens)
+        torch.cuda.synchronize()
+        prefill_launches = {name: fn.launches for name, fn in kern.items()}
+        built_dec = steps.sharded(*dec[:3])
+        dec_logits = [built_dec(params, caches["built"], t)[0].clone()
+                      for t in steps_tokens]
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in kern.items()}
+        want, wcache = T.forward(params, hopper, tokens, emit_cache=True)
+        plain, _ = T.forward(params, dataclasses.replace(
+            cfg, attention_impl="chunked"), tokens)
+        want_dec = [T.decode_step(params, cfg, caches["direct"], t)[0]
+                    .clone() for t in steps_tokens]
+        torch.cuda.synchronize()
+    same_pre = torch.equal(logits, want[:, -1:]) and _bitwise(
+        torch, pcache, wcache)
+    rel = _rel(logits, plain[:, -1:])
+    same_dec = all(torch.equal(a, b) for a, b in zip(dec_logits, want_dec)) \
+        and _bitwise(torch, caches["built"], caches["direct"])
+    print(f"[steps] prefill 1 x {PREFILL_TOKENS} (hopper): logits "
+          f"{tuple(logits.shape)}, last logits and cache bitwise equal to "
+          f"T.forward {same_pre}, max_rel_err against chunked {rel:.3e} "
+          f"(limit {PREFILL_RTOL}); launches {prefill_launches}", flush=True)
+    print(f"[steps] decode {STEPS_DECODE} steps of {STEPS_SLOTS} rows "
+          f"(donate {dec[3]}): logits and cache bitwise equal to "
+          f"T.decode_step {same_dec}", flush=True)
+    check(logits.shape == (1, 1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()), "built prefill logits")
+    check(same_pre, "the built prefill step differs from T.forward")
+    check(rel <= PREFILL_RTOL, f"built prefill logits differ from chunked's "
+          f"by {rel:.3e} of their largest magnitude")
+    n_attn = cfg.layer_types().count("attn")
+    check(prefill_launches["flash_attention"] == n_attn
+          and sum(prefill_launches.values()) == n_attn,
+          f"built prefill launches {prefill_launches}, expected "
+          f"flash_attention x {n_attn} and nothing else")
+    check(same_dec, "the built decode step differs from T.decode_step")
+    check(launches == prefill_launches, f"the built decode steps launched "
+          f"a kernel: {launches} after the prefill's {prefill_launches}")
+    return launches
+
+
+def dryrun_cell(torch) -> None:
+    """17b. One pattern unit of qwen2 decode_32k on the pod mesh through the
+    dry run's CLI, in a subprocess that sees no card."""
+    import os
+    out = ROOT / "build" / "chip_smoke_dryrun.json"
+    out.unlink(missing_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen2_1_5b", "--shape", "decode_32k", "--mesh", "pod", "--set",
+         "n_layers=1", "--out", str(out)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    check(res.returncode == 0, f"the dry run exited {res.returncode}: "
+          f"{res.stdout[-1500:]} {res.stderr[-1500:]}")
+    (rec,) = json.loads(out.read_text())
+    print(f"[steps] dry run (torch {torch.__version__}, CPU, fake 256-rank "
+          f"group) in {seconds:.1f} s: {json.dumps(rec)}", flush=True)
+    check(rec["status"] == "ok" and rec["n_chips"] == 256
+          and rec["flops_per_device"] > 0 and rec["collective_count"] > 0,
+          f"dry-run record {rec}")
+
+
+def phase_steps(torch, kern, cfg, smi: str):
+    """17. build_step's three steps on the card, then the dry run on this
+    machine's torch (see the module docstring).  Returns the launches by
+    kernel of the built steps."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_host_mesh("cuda")
+    built_train(torch, cfg, mesh)
+    _free(torch)
+    launches = built_prefill_decode(torch, kern, cfg, mesh)
+    _free(torch)
+    check(not dist.is_initialized(), "the built steps made a process group")
+    t1 = time.perf_counter()
+    dryrun_cell(torch)
+    print(f"[steps] phase 17: built steps {t1 - t0:.1f} s, dry run "
+          f"{time.perf_counter() - t1:.1f} s; launches {launches} ({smi})",
+          flush=True)
+    return launches
+
+
 def _free(torch) -> None:
     import gc
     gc.collect()
@@ -3941,6 +4141,8 @@ def main() -> None:
     # 16. the sharding policy: the host mesh on the card, the production
     # meshes on meta tensors
     sharding_launches = phase_sharding(torch, kern, QWEN2, smi)
+    # 17. build_step's three steps on the host mesh, the dry run on the CPU
+    steps_launches = phase_steps(torch, kern, QWEN2, smi)
     # 11. the MoE and recurrent families
     family_launches = phase_families(torch, kern, smi)
     # 12. training
@@ -3954,7 +4156,7 @@ def main() -> None:
                 "speculation": spec_launches, "families": family_launches,
                 "train": train_launches, "cross": cross_launches,
                 "obs": obs_launches, "migration": migration_launches,
-                "sharding": sharding_launches,
+                "sharding": sharding_launches, "steps": steps_launches,
                 "served_prompts_prefill": obs_prefill_launches}
     home = {"flash_attention": "prefill", "paged_attention": "serve_entry"}
 

@@ -13,8 +13,8 @@ Every architecture is ported: the decoder-only ones, the encoder-decoder
 ``alexnet``.  ``runnable_cells`` lists the (arch, shape) cells and
 ``input_specs`` gives each cell's abstract inputs as tensors on the
 ``meta`` device (nothing allocated), the JAX package's ``ShapeDtypeStruct``
-stand-ins; the step builders and the dry run that take them are ROADMAP §1
-item 9a-ii.
+stand-ins, which ``launch.steps.build_step`` and the dry run
+(``launch.dryrun``) take.
 """
 from __future__ import annotations
 

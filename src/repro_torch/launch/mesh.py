@@ -8,11 +8,12 @@ device and no process group.  Two concerns live here:
   names.  Single pod: 16x16 = 256 ranks, axes (data, model).  Multi-pod:
   2 pods = 512 ranks, axes (pod, data, model); 'pod' is the outer
   data-parallel axis.  The production meshes span the default process
-  group (one rank per card, launched with ``torchrun``); the host mesh is
-  1x1 over one device and needs no process group.  Serve and train place
-  their weights on the host mesh; ``build_step`` and the dry run on the
-  production meshes are ROADMAP §1 item 9a-ii, serving and training on
-  them item 9b.
+  group (one rank per card, launched with ``torchrun``, or the ranks of
+  :func:`fake_process_group`, which allocates nothing and communicates
+  nothing: the dry run's stand-in for a pod); the host mesh is 1x1 over
+  one device and needs no process group.  Serve and train place their
+  weights on the host mesh, and ``launch.steps.build_step`` runs on either;
+  serving and training on the production meshes are ROADMAP §1 item 9b.
 * **Phase device assignment** for disaggregated serving
   (:class:`DeviceAssignment`): with at least two visible devices the
   prefill and decode engines go to distinct ones, otherwise both share the
@@ -28,9 +29,10 @@ group stands in for a pod's ranks in tests).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import List, Optional
+from typing import Iterator, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -42,11 +44,56 @@ MULTI_DEVICE_HINT = ("a distinct decode device needs a second card: "
                      "CUDA_VISIBLE_DEVICES selects which are visible")
 
 
+POD_SHAPE, MULTIPOD_SHAPE = (16, 16), (2, 16, 16)
+
+
+def production_ranks(multi_pod: bool = False) -> int:
+    """Ranks of the pod mesh (256) or the multipod mesh (512)."""
+    return math.prod(MULTIPOD_SHAPE if multi_pod else POD_SHAPE)
+
+
+def _register_fake_backend() -> None:
+    """Register c10d's ``fake`` backend once (``torch.testing``'s fake
+    process group registers the same creator; either registration
+    serves)."""
+    if "FAKE" in dist.Backend._plugins:
+        return
+    from torch._C._distributed_c10d import FakeProcessGroup
+
+    def create(common_opts, backend_opts):
+        make = getattr(FakeProcessGroup, "_create_internal", FakeProcessGroup)
+        return make(common_opts.group_rank, common_opts.group_size,
+                    backend_opts)
+
+    dist.Backend.register_backend("fake", create, extended_api=True,
+                                  devices=["cpu", "cuda"])
+
+
+@contextlib.contextmanager
+def fake_process_group(world_size: int) -> Iterator[None]:
+    """The default process group as rank 0 of ``world_size`` fake ranks:
+    every collective returns at once with its output's shape and moves no
+    data, so a production mesh of meta tensors can be traced in one
+    process.  Refuses to replace a default group that already exists, and
+    destroys its own on exit, pass or fail."""
+    if dist.is_initialized():
+        raise RuntimeError("fake_process_group: a default process group "
+                           "already exists")
+    _register_fake_backend()
+    dist.init_process_group("fake", store=dist.HashStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device_type: str = "cuda") -> DeviceMesh:
     """The pod mesh (data=16, model=16), or with ``multi_pod`` the
-    (pod=2, data=16, model=16) mesh, over the default process group."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
+    (pod=2, data=16, model=16) mesh, over the default process group (real
+    ranks, or :func:`fake_process_group`'s with ``device_type="cpu"``)."""
+    shape = MULTIPOD_SHAPE if multi_pod else POD_SHAPE
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     need = math.prod(shape)
     have = dist.get_world_size() if dist.is_initialized() else 1

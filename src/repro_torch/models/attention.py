@@ -27,15 +27,17 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..kernels import ops as kops
+from .layers import whole_if_uneven
 
 _NEG_INF = -1e30
 
 
 def _gqa_fold(q: torch.Tensor, hk: int) -> torch.Tensor:
     b, hq, s, d = q.shape
-    return q.reshape(b, hk, hq // hk, s, d)
+    return whole_if_uneven(q, 1, hk).reshape(b, hk, hq // hk, s, d)
 
 
 def _mask(s: int, qpos0: int, kpos: torch.Tensor, causal: bool,
@@ -76,9 +78,12 @@ def _chunked_fwd(q, k, v, causal: bool, window: Optional[int], bk: int):
     hk, t = k.shape[1], k.shape[2]
     g = hq // hk
     qg = _gqa_fold(q, hk).float() * (1.0 / (d ** 0.5))     # (B,HK,G,S,D)
-    m = torch.full((b, hk, g, s, 1), _NEG_INF, device=q.device)
-    l = torch.zeros((b, hk, g, s, 1), device=q.device)
-    acc = torch.zeros((b, hk, g, s, d), device=q.device)
+    # the running state made like the queries: on a DTensor it takes
+    # their placements (a plain buffer would count as replicated, and the
+    # whole loop would follow it)
+    m = torch.full_like(qg[..., :1], _NEG_INF)
+    l = torch.zeros_like(qg[..., :1])
+    acc = torch.zeros_like(qg)
     for k0 in range(0, t, bk):
         kb = k[:, :, k0:k0 + bk].float()
         vb = v[:, :, k0:k0 + bk].float()
@@ -163,6 +168,17 @@ def hopper_attention(q, k, v, *, causal: bool = True,
 def attend(q, k, v, *, impl: str = "dot", causal: bool = True,
            window: Optional[int] = None,
            kv_chunk: int = 2048) -> torch.Tensor:
+    if isinstance(q, DTensor) and q.shape[2] > 1 and k.shape[1] < q.shape[1]:
+        # queries split on the sequence: each key/value head repeated for
+        # its query heads (head h reads kv head h // G, as the fold does),
+        # so the products' rows are the split sequence alone; folded, the
+        # rows (group, sequence) take a strided layout that DTensor may
+        # settle by repeating the whole attention on every device of the
+        # sequence's axis (granite's 48 heads on 1 kv head did)
+        g = q.shape[1] // k.shape[1]
+        k, v = (t.unsqueeze(2).expand(t.shape[0], t.shape[1], g,
+                                      *t.shape[2:]).flatten(1, 2)
+                for t in (k, v))
     if impl == "chunked":
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  kv_chunk=kv_chunk)
@@ -197,6 +213,13 @@ def decode_attention(q, k_cache, v_cache, *, pos: torch.Tensor,
     """
     b, hq, _, d = q.shape
     hk, t = k_cache.shape[1], k_cache.shape[2]
+    if isinstance(k_cache, DTensor):
+        # the query's batch split as the cache's: DTensor would otherwise
+        # move the rest of it onto the heads, and the products' flattened
+        # (batch, heads) rows would take a strided layout
+        q = q.redistribute(q.device_mesh, [
+            Shard(0) if getattr(p, "dim", None) == 0 else Replicate()
+            for p in k_cache.placements])
     qg = _gqa_fold(q, hk)[:, :, :, 0]                        # (B,HK,G,D)
     logits = torch.einsum("bkgd,bktd->bkgt",
                           qg.to(k_cache.dtype).float(),

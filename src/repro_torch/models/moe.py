@@ -24,6 +24,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from .layers import pin
+
 
 @dataclasses.dataclass(frozen=True)
 class MoEArgs:
@@ -49,9 +51,24 @@ def capacity(args: MoEArgs, seq: int) -> int:
     return max(8, ((c + 7) // 8) * 8)
 
 
+def _hint(t: torch.Tensor, batch_axes, dim: int) -> torch.Tensor:
+    """Pin the batch dim of an MoE buffer on a DTensor mesh (the JAX
+    package's hint: a scatter's sharding rules lose the batch shard, and
+    the expert buffers come out replicated to the whole global batch); a
+    plain tensor passes unchanged."""
+    if batch_axes is None:
+        return t
+    spec = [None] * t.dim()
+    spec[dim] = batch_axes
+    return pin(t, spec)
+
+
 def moe_apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
-              args: MoEArgs, compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """x: (B, S, D) -> (B, S, D)."""
+              args: MoEArgs, compute_dtype=torch.bfloat16,
+              batch_axes=None) -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D).  ``batch_axes``: the mesh axes the batch
+    is sharded over (``ModelConfig.act_sharding``'s), pinned on the expert
+    buffers of a DTensor."""
     b, s, d = x.shape
     e, k = args.n_experts, args.top_k
     cap = capacity(args, s)
@@ -79,10 +96,10 @@ def moe_apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
     # the dump row (cut away) ever sums more than one token
     src = x[:, :, None, :].expand(b, s, k, d).reshape(b, s * k, d).to(cd)
     idx = flat_idx[..., None].expand(b, s * k, d)
-    buf = torch.zeros((b, n_slots + 1, d), dtype=cd, device=x.device)
-    buf.scatter_add_(1, idx, src)
-    xin = buf[:, :n_slots].reshape(b, e, cap, d).transpose(0, 1) \
-        .reshape(e, b * cap, d)                               # (E, B·C, D)
+    buf = _hint(src.new_zeros((b, n_slots + 1, d)), batch_axes, 0)
+    buf = buf.scatter_add(1, idx, src)
+    xin = _hint(buf[:, :n_slots].reshape(b, e, cap, d).transpose(0, 1),
+                batch_axes, 1).reshape(e, b * cap, d)         # (E, B·C, D)
 
     h = F.silu(torch.bmm(xin, params["w_gate"].to(cd)))
     h = h * torch.bmm(xin, params["w_up"].to(cd))

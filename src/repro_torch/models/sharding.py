@@ -38,8 +38,10 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import (Placement, Replicate, Shard,
+from torch.distributed.tensor import (DTensor, Placement, Replicate, Shard,
                                       distribute_tensor)
+
+from ..tree import tree_map
 
 from .transformer import ModelConfig, encoder_config, map_params, param_shapes
 
@@ -363,20 +365,23 @@ def meta_params(cfg: ModelConfig) -> Tree:
 
 
 def place(tree: Tree, shardings: Tree) -> Tree:
-    """Each tensor of ``tree`` on its :class:`Sharding` (same structure):
-    ``distribute_tensor`` on a mesh of more than one rank; on a one-device
-    mesh, where every spec is replicated, the plain tensor on the mesh's
-    device (the tensor itself when it is there already)."""
+    """Each tensor of ``tree`` on its :class:`Sharding` (same structure:
+    dicts, lists, tuples and named tuples): ``distribute_tensor`` on a mesh
+    of more than one rank (a DTensor already there is kept, one elsewhere
+    redistributed); on a one-device mesh, where every spec is replicated,
+    the plain tensor on the mesh's device (the tensor itself when it is
+    there already)."""
     def put(t, s):
-        if isinstance(t, Mapping):
-            return {k: put(v, s[k]) for k, v in t.items()}
-        if isinstance(t, list):
-            return [put(v, w) for v, w in zip(t, s)]
         if not isinstance(s, Sharding):
             raise TypeError(f"place needs a DeviceMesh's shardings, got "
                             f"{s!r}")
         if s.mesh.size() == 1:
             return t.to(mesh_device(s.mesh))
+        if isinstance(t, DTensor):
+            if t.device_mesh == s.mesh and tuple(t.placements) == tuple(
+                    s.placements):
+                return t
+            return t.redistribute(s.mesh, s.placements)
         return distribute_tensor(t, s.mesh, list(s.placements))
 
-    return put(tree, shardings)
+    return tree_map(put, tree, shardings)

@@ -46,14 +46,16 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from ..tree import tree_leaves
 from . import attention as attn_lib
 from . import moe as moe_lib
 from . import ssm as ssm_lib
-from .layers import (apply_rope, gelu_mlp, rmsnorm, softmax_cross_entropy,
-                     swiglu)
+from .layers import (apply_rope, gelu_mlp, is_split, pin, rmsnorm,
+                     softmax_cross_entropy, spec_axes, swiglu, unshard,
+                     whole_if_uneven)
 
 Params = Dict[str, Any]
 
@@ -103,6 +105,11 @@ class ModelConfig:
     frontend: str = "none"                  # none | audio | vision
     img_seq: int = 6404                     # vision stub: 4 tiles x 1601
     grad_accum: int = 1
+    # activation sharding constraint (batch_axes, seq_axes), mesh axis names
+    # set by launch.steps.build_step: pins (B, S, D) activations on a
+    # DTensor mesh, so a parameter's storage shard cannot take the batch's
+    # axis (ZeRO-3); a plain tensor passes unchanged
+    act_sharding: Optional[Tuple[Any, Any]] = None
 
     @property
     def hd(self) -> int:
@@ -135,6 +142,79 @@ class ModelConfig:
 
 
 RECURRENT = ("rec", "mamba")
+
+
+def _norm_in(x: torch.Tensor, weight: torch.Tensor,
+             cfg: ModelConfig) -> torch.Tensor:
+    """The normed input of a block's projections.  On a DTensor the
+    sequence is then gathered whole (Megatron's sequence parallelism): a
+    product flattens (B, S) into rows, and rows split over a batch and a
+    sequence mesh dim at once form a strided layout, whose redistributions
+    DTensor plans by a search over the placements of every mesh dim, for
+    minutes per op on the multipod mesh."""
+    return unshard(rmsnorm(x, weight, cfg.norm_eps), 1)
+
+
+def _gathered(p, cfg: ModelConfig):
+    """A layer's parameters (a tree, or one tensor) for its products: on a
+    DTensor mesh each weight is gathered whole over the mesh dims of the
+    batch axes, ZeRO-3's all-gather (its backward reduce-scatters the
+    gradients onto the storage shards), so the products take their natural
+    layouts, rows split by batch and columns by 'model', and no storage
+    shard competes with the batch for a mesh dim.  Plain tensors pass
+    unchanged."""
+    if cfg.act_sharding is None:
+        return p
+    axes = spec_axes(cfg.act_sharding[0])
+
+    def gather(t):
+        if not isinstance(t, DTensor):
+            return t
+        names = t.device_mesh.mesh_dim_names
+        return t.redistribute(t.device_mesh, [
+            Replicate() if names[i] in axes else pl
+            for i, pl in enumerate(t.placements)])
+
+    return map_params(lambda _, t: gather(t), p)
+
+
+def _seq_split(q: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Queries (B, H, S, D) on a DTensor mesh split on the sequence over
+    the activation constraint's sequence axes, in place of the heads where
+    those axes split them: each device attends for its own queries against
+    the whole keys, the sequence parallelism GSPMD gives the JAX package
+    (:func:`_norm_in` gathered the sequence for the projections).  Heads
+    split by the sequence's axis would make the products' (batch, heads)
+    rows a strided layout, which DTensor may settle by repeating the
+    attention on every device of that axis.  The caller gathers the output
+    again.  Any other tensor as it is."""
+    if (cfg.act_sharding is None or not isinstance(q, DTensor)
+            or q.shape[2] == 1):
+        return q
+    names = q.device_mesh.mesh_dim_names
+    seq = spec_axes(cfg.act_sharding[1])
+    return q.contiguous().redistribute(q.device_mesh, [
+        Shard(2) if names[i] in seq and (isinstance(p, Replicate)
+                                         or getattr(p, "dim", None) == 1)
+        else p for i, p in enumerate(q.placements)])
+
+
+def _residual(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x + y, a block's branch ``y`` added to the residual stream.  On a
+    DTensor the branch is first pinned whole on the sequence, as
+    :func:`_norm_in` computed it: nothing moves in the forward, and the
+    gradient reaching the branch is gathered too, so its backward products
+    meet no strided layout either."""
+    return x + unshard(y, 1)
+
+
+def _constrain_act(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Pin (B, S, D) activations to the policy's batch/seq sharding
+    (``cfg.act_sharding``; the sequence's only while S > 1)."""
+    if cfg.act_sharding is None:
+        return x
+    b_ax, s_ax = cfg.act_sharding
+    return pin(x, (b_ax, s_ax if x.shape[1] > 1 else None, None))
 
 
 def encoder_config(cfg: ModelConfig) -> ModelConfig:
@@ -321,16 +401,20 @@ def _project_qkv(p: Params, h_in: torch.Tensor, cfg: ModelConfig,
         q = q + p["bq"].to(cd)
         k = k + p["bk"].to(cd)
         v = v + p["bv"].to(cd)
-    b, s, t = h_in.shape[0], h_in.shape[1], src.shape[1]
-    q = q.reshape(b, s, cfg.n_heads, cfg.hd).transpose(1, 2)
-    k = k.reshape(b, t, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
-    v = v.reshape(b, t, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
-    return q, k, v
+    return (_split_heads(q, cfg.n_heads, cfg.hd),
+            _split_heads(k, cfg.n_kv_heads, cfg.hd),
+            _split_heads(v, cfg.n_kv_heads, cfg.hd))
+
+
+def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n·hd) -> (B, n, S, hd)."""
+    x = whole_if_uneven(x, 2, n)
+    return x.reshape(x.shape[0], x.shape[1], n, hd).transpose(1, 2)
 
 
 def _merge_heads(out: torch.Tensor, p: Params, cfg: ModelConfig):
     b, h, s, hd = out.shape
-    out = out.transpose(1, 2).reshape(b, s, h * hd)
+    out = whole_if_uneven(out.transpose(1, 2).reshape(b, s, h * hd), 2, h)
     return out @ p["wo"].to(cfg.compute_dtype)
 
 
@@ -344,11 +428,12 @@ def _mlp_core(m: Params, h_in: torch.Tensor, cfg: ModelConfig):
 
 
 def _mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    h_in = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    h_in = _norm_in(x, p["ln2"], cfg)
     if cfg.n_experts > 0:
-        return x + moe_lib.moe_apply(p["mlp"], h_in, cfg.moe_args(),
-                                     cfg.compute_dtype)
-    return x + _mlp_core(p["mlp"], h_in, cfg)
+        return _residual(x, moe_lib.moe_apply(
+            p["mlp"], h_in, cfg.moe_args(), cfg.compute_dtype,
+            cfg.act_sharding[0] if cfg.act_sharding else None))
+    return _residual(x, _mlp_core(p["mlp"], h_in, cfg))
 
 
 def _cross_attention(p: Params, x: torch.Tensor,
@@ -360,12 +445,14 @@ def _cross_attention(p: Params, x: torch.Tensor,
     one ``cfg.attention_impl``, so ``hopper`` launches the flash kernel with
     ``causal=False`` and S != T.  ``cross`` None attends over ``x``
     itself, as the JAX package's does."""
-    h_in = rmsnorm(x, p["lnx" if "lnx" in p else "ln1"], cfg.norm_eps)
-    q, k, v = _project_qkv(p["xattn"], h_in, cfg, kv_src=cross)
-    out = attn_lib.attend(q, k, v, impl="dot" if x.shape[1] == 1 else
+    h_in = _norm_in(x, p["lnx" if "lnx" in p else "ln1"], cfg)
+    q, k, v = _project_qkv(p["xattn"], h_in, cfg,
+                           kv_src=None if cross is None else unshard(cross, 1))
+    out = attn_lib.attend(_seq_split(q, cfg), k, v,
+                          impl="dot" if x.shape[1] == 1 else
                           cfg.attention_impl, causal=False,
                           kv_chunk=cfg.attn_chunk)
-    return _merge_heads(out, p["xattn"], cfg)
+    return _merge_heads(unshard(out, 2), p["xattn"], cfg)
 
 
 def _gate(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -376,24 +463,35 @@ def _xattn_block(p: Params, x: torch.Tensor, cross: Optional[torch.Tensor],
                  cfg: ModelConfig) -> torch.Tensor:
     """A vision layer: gated cross-attention, then a gated MLP, each
     residual scaled by the tanh of its gate."""
-    x = x + _gate(p["gate_attn"], x) * _cross_attention(p, x, cross, cfg)
-    h_in = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + _gate(p["gate_mlp"], x) * _mlp_core(p["mlp"], h_in, cfg)
+    x = _residual(x, _gate(p["gate_attn"], x)
+                  * _cross_attention(p, x, cross, cfg))
+    h_in = _norm_in(x, p["ln2"], cfg)
+    return _residual(x, _gate(p["gate_mlp"], x)
+                     * _mlp_core(p["mlp"], h_in, cfg))
 
 
 def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig):
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
-    return x @ head.to(cfg.compute_dtype)
+    head = _gathered(head, cfg)
+    norm = _gathered(params["final_norm"], cfg)
+    if isinstance(head, DTensor) and not is_split(head, 1):
+        # no mesh dim splits the vocab: the rows keep the activations'
+        # sequence split, else every device of its axis would repeat the
+        # whole head's product
+        x = rmsnorm(x, norm, cfg.norm_eps)
+        return x @ unshard(head, 0).to(cfg.compute_dtype)
+    x = _norm_in(x, norm, cfg)
+    return unshard(x @ head.to(cfg.compute_dtype), 1)   # see _residual
 
 
 def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig):
     # F.embedding, not advanced indexing: its backward on a card sums each
     # row's gradients in a fixed order (index_put_'s atomics do not), so a
     # training step is bitwise repeatable
-    return F.embedding(tokens.long(), params["embed"]).to(cfg.compute_dtype)
+    return F.embedding(tokens.long(), _gathered(params["embed"], cfg)).to(
+        cfg.compute_dtype)
 
 
 def _recurrent(cfg: ModelConfig, btype: str):
@@ -407,7 +505,7 @@ def _recurrent_out(p: Params, x: torch.Tensor, y: torch.Tensor, btype: str,
                    cfg: ModelConfig) -> torch.Tensor:
     """The residual around a recurrent branch; a ``rec`` layer adds its MLP,
     a mamba block carries its own expansion."""
-    x = x + y
+    x = _residual(x, y)
     return _mlp(p, x, cfg) if btype == "rec" else x
 
 
@@ -426,13 +524,15 @@ def _run_layers(stack: List[Params], x: torch.Tensor, cfg: ModelConfig,
     positions = torch.arange(x.shape[1], device=x.device)
     caches = []
     for btype, p in zip(cfg.layer_types(), stack):
+        p = _gathered(p, cfg)
         if remat:
             x = checkpoint(_layer, btype, p, x, positions, cfg, False, cross,
                            causal, use_reentrant=False)[0]
-            continue
-        x, entry = _layer(btype, p, x, positions, cfg, emit_cache, cross,
-                          causal)
-        caches.append(entry)
+        else:
+            x, entry = _layer(btype, p, x, positions, cfg, emit_cache, cross,
+                              causal)
+            caches.append(entry)
+        x = _constrain_act(x, cfg)
     return x, caches
 
 
@@ -442,7 +542,7 @@ def encode(params: Params, cfg: ModelConfig,
     self-attention runs unmasked (``causal=False``; ``hopper`` launches the
     flash kernel so), then ``enc_final_norm``.  Returns (B, T, D) in the
     compute dtype, the features the decoder's cross-attention reads."""
-    x = enc_inputs.to(cfg.compute_dtype)
+    x = _constrain_act(enc_inputs.to(cfg.compute_dtype), cfg)
     x, _ = _run_layers(params["encoder"], x, encoder_config(cfg), None,
                        False, False, _remat(params, cfg, False))
     return rmsnorm(x, params["enc_final_norm"], cfg.norm_eps)
@@ -484,7 +584,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     cross-attention on a CUDA tensor (and once per encoder layer).  A
     recurrent config needs S to be a multiple of ``min(scan_chunk, S)``."""
     cross = _cross_features(params, cfg, enc_inputs, img_embeds)
-    x = _embed(params, tokens, cfg)
+    x = _constrain_act(_embed(params, tokens, cfg), cfg)
     x, caches = _run_layers(params["layers"], x, cfg, cross, True,
                             emit_cache, _remat(params, cfg, emit_cache))
     logits = _logits(params, x, cfg)
@@ -504,7 +604,7 @@ def _layer(btype: str, p: Params, x: torch.Tensor, positions: torch.Tensor,
     None)."""
     if btype in RECURRENT:
         apply, _, args = _recurrent(cfg, btype)
-        h_in = rmsnorm(x, p["ln1"], cfg.norm_eps)
+        h_in = _norm_in(x, p["ln1"], cfg)
         y = apply(p[btype], h_in, args, cfg.compute_dtype,
                   return_state=emit_cache)
         entry = None
@@ -514,13 +614,14 @@ def _layer(btype: str, p: Params, x: torch.Tensor, positions: torch.Tensor,
         return _recurrent_out(p, x, y, btype, cfg), entry
     if btype == "xattn":
         return _xattn_block(p, x, cross, cfg), {} if emit_cache else None
-    h_in = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    h_in = _norm_in(x, p["ln1"], cfg)
     q, k, v = _project_qkv(p["attn"], h_in, cfg)
     q = apply_rope(q, positions[None, None], cfg.rope_theta)
     k = apply_rope(k, positions[None, None], cfg.rope_theta)
-    out = attn_lib.attend(q, k, v, impl=cfg.attention_impl, causal=causal,
-                          window=cfg.attn_window, kv_chunk=cfg.attn_chunk)
-    x = _finish_block(p, x, out, cfg, cross)
+    out = attn_lib.attend(_seq_split(q, cfg), k, v, impl=cfg.attention_impl,
+                          causal=causal, window=cfg.attn_window,
+                          kv_chunk=cfg.attn_chunk)
+    x = _finish_block(p, x, unshard(out, 2), cfg, cross)
     if not emit_cache:
         return x, None
     w = cfg.attn_window
@@ -670,9 +771,9 @@ def _finish_block(p: Params, x: torch.Tensor, out: torch.Tensor,
                   cross: Optional[torch.Tensor]) -> torch.Tensor:
     """An attention block after its attention: the output projection, an
     encoder-decoder's cross-attention branch, the MLP, each a residual."""
-    x = x + _merge_heads(out, p["attn"], cfg)
+    x = _residual(x, _merge_heads(out, p["attn"], cfg))
     if "xattn" in p and cross is not None:
-        x = x + _cross_attention(p, x, cross, cfg)
+        x = _residual(x, _cross_attention(p, x, cross, cfg))
     return _mlp(p, x, cfg)
 
 
@@ -681,21 +782,32 @@ def _dense_attn_block(p: Params, x: torch.Tensor, layer: Dict[str, Any],
                       active: Optional[torch.Tensor],
                       cross: Optional[torch.Tensor]) -> torch.Tensor:
     q, k, v = _qkv_at(p, x, cfg, pos)
-    k_cache, v_cache = layer["k"], layer["v"]
-    b, t = x.shape[0], k_cache.shape[2]
+    b, t = x.shape[0], layer["k"].shape[2]
     if cfg.attn_window is not None:
         slot = pos % t                       # rolling buffer
     else:
         slot = torch.clamp(pos, max=t - 1)
     rows = torch.arange(b, device=x.device)
     slot = slot.long().expand(b)
-    for cache_rows, new in ((k_cache, k), (v_cache, v)):
+    for name, new in (("k", k), ("v", v)):
+        cache_rows = layer[name]
         new = new[:, :, 0].to(cache_rows.dtype)           # (B, HK, D)
+        if isinstance(cache_rows, DTensor):
+            # a row write into a cache sharded on batch and time has no
+            # in-place DTensor strategy: select the row by a mask, out of
+            # place, and replace the entry, on the cache's placements
+            hit = torch.arange(t, device=x.device)[None] == slot[:, None]
+            if active is not None:
+                hit = hit & active[:, None]
+            layer[name] = torch.where(
+                hit[:, None, :, None], new[:, :, None], cache_rows
+            ).redistribute(cache_rows.device_mesh, cache_rows.placements)
+            continue
         if active is not None:               # inactive slots keep their row
             new = torch.where(active[:, None, None], new,
                               cache_rows[rows, :, slot])
         cache_rows[rows, :, slot] = new
-    out = attn_lib.decode_attention(q, k_cache, v_cache, pos=pos,
+    out = attn_lib.decode_attention(q, layer["k"], layer["v"], pos=pos,
                                     window=cfg.attn_window)
     return _finish_block(p, x, out, cfg, cross)
 
@@ -709,12 +821,17 @@ def _recurrent_block(btype: str, p: Params, x: torch.Tensor,
     state = layer[btype]
     h_in = rmsnorm(x, p["ln1"], cfg.norm_eps)
     y, new = step(p[btype], h_in, state, args, cfg.compute_dtype)
-    for name, t in state.items():
+    for name, t in list(state.items()):
         upd = new[name]
         if active is not None:
             upd = torch.where(active.reshape((-1,) + (1,) * (t.dim() - 1)),
                               upd, t)
-        t.copy_(upd)
+        if isinstance(t, DTensor):
+            # an in-place copy needs the placements to match: the new
+            # state replaces the entry
+            state[name] = upd
+        else:
+            t.copy_(upd)
     return _recurrent_out(p, x, y, btype, cfg)
 
 
@@ -726,15 +843,17 @@ def _decode_layers(params: Params, cfg: ModelConfig, cache: Dict[str, Any],
     steps otherwise), the head: the one body the dense, paged and static
     steps share.  ``cross`` is the cache's cross rows, or None."""
     cross = cache.get("cross")
-    x = _embed(params, tokens, cfg)
+    x = _constrain_act(_embed(params, tokens, cfg), cfg)
     for btype, p, layer in zip(cfg.layer_types(), params["layers"],
                                cache["layers"]):
+        p = _gathered(p, cfg)
         if btype in RECURRENT:
             x = _recurrent_block(btype, p, x, layer, cfg, active)
         elif btype == "xattn":
             x = _xattn_block(p, x, cross, cfg)
         else:
             x = attn_block(p, x, layer, cross)
+        x = _constrain_act(x, cfg)
     return _logits(params, x, cfg)
 
 

@@ -43,7 +43,8 @@ def test_no_jax_or_reference_imports():
 
 def test_package_imports_no_torch_testing():
     """``torch.testing`` (the fake process group among it) is for tests and
-    ``chip_smoke.py``; the package and its benchmarks do without it."""
+    ``chip_smoke.py``; the package and its benchmarks do without it (the
+    dry run registers c10d's fake backend itself)."""
     offending = [
         (str(p.relative_to(REPO)), m) for p in _port_files()
         if p.name != "chip_smoke.py"
@@ -70,7 +71,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                  "configs.minicpm_2b", "optim.adamw", "optim.schedules",
                  "optim.compression", "data.pipeline", "checkpoint.manager",
                  "runtime.fault_tolerance", "launch.steps", "launch.train",
-                 "models.sharding", "launch.mesh", "tree"):
+                 "models.sharding", "launch.mesh", "tree", "launch.dryrun",
+                 "launch.roofline"):
         assert f"repro_torch.{name}" in modules
     benches = sorted(p.stem for p in (REPO / "benchmarks").glob(
         "bench_torch_*.py"))
